@@ -263,18 +263,3 @@ def test_cuda_wrappers_raise_on_bad_input_and_never_fall_back():
     for args in bad:
         with pytest.raises(ValueError):
             K._check(*args)
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    """Each CUDA kernel against its plain version on one card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
-                    "python3 chip_smoke.py covers them on the card")
-    rng = np.random.default_rng(7)
-    q, r = _clustered(rng, 200, 512, 1024)
-    qc, rc = torch.from_numpy(q).cuda(), torch.from_numpy(r).cuda()
-    want = (torch.cdist(qc.double(), rc.double()) ** 2).min(1).values.cpu().numpy()
-    for init in (None, torch.full((1024,), -1, dtype=torch.int32, device="cuda")):
-        d, i = port_knn(qc, rc, init_idx=init)
-        _assert_nn(q, r, d.cpu().numpy(), i.cpu().numpy(), want, atol=1e-4)
