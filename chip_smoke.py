@@ -8,20 +8,34 @@ Phases (any failure ends the script with a non-zero exit):
   2. build    nvcc builds every kernel from ops/csrc/ (one process per source);
   3. kernels  each of the three KNN kernels against its plain PyTorch version
               on the same inputs, at the on-chip check shapes (cold and warm),
-              at main-path-like shapes and in a forced table overflow, and the
+              at main-path-like shapes (the resident kernel cold, the dense
+              kernel on a cold search past the resident limit and on a warm
+              call with random seeds, the candidate kernel warm and on an
+              unseeded warm call whose every list is full), and the
               dispatcher's distances against a float64 oracle;
   4. main     online adaptation from configs/config.yaml at full width
               (320x256, ResNet-18, 3 refine steps, brute three3d), only
               DEMO.sequence_length cut, with every kernel launch counted and
               the largest call of each kernel kept; those calls are then held
-              against the plain versions and timed;
+              against the plain versions and timed; no warm call may take the
+              dense kernel;
   5. small    the same path at 64x64 on the card and on the CPU (plain
               versions): the same keyframes, abs_rel and map size.
 The second-to-last line is the kernels' JSON line, the last line the result.
-Beside the timed fields, each kernel's entry there carries ``check_launches``
-(its launches through the dispatcher in phase 3) and ``cdist_ms`` (a chunked
-``torch.cdist(...).min(1)`` over the same valid rows: a yardstick the port
-never calls, not a library version of the kernel).
+Kernel and plain version must agree to the float32 rounding bound of the
+score (``fp32_distance_bound`` in ops/knn.py, from the rows picked); where
+their indices differ, each check line reports the float64 distance gaps
+between the two picks, and a gap past that bound fails the run.
+A kernel's ``ms`` is the device time of one wrapper call from torch.profiler:
+the KNN kernel and the helper kernels the wrapper launches around it
+(``kernel_ms`` is the KNN kernel alone); ``call_ms`` is the wrapper's call
+as the caller waits for it (CUDA events, host enqueue included). Beside the
+timed fields, each kernel's entry carries ``check_launches``
+(its launches through the dispatcher in phase 3), ``visited_pairs`` (the
+(query, ref) pairs the timed call scored, which the bound counts) with
+their spread over blocks or work items (``visit_max``, ``visit_mean``), and
+``cdist_ms`` (a chunked ``torch.cdist(...).min(1)`` over the same valid rows:
+a yardstick the port never calls, not a library version of the kernel).
 The weights are random, drawn from a seed; the data is the synthetic scene.
 """
 
@@ -61,12 +75,14 @@ def launch_counts(knn) -> dict:
 class Recorder:
     """Wraps the kernel wrappers of ``ops.knn``: every call goes through
     (and is counted by) the real wrapper; the largest call of each kernel
-    (by visited-work proxy: query rows x ref rows) keeps its arguments."""
+    (by visited-work proxy: query rows x ref rows) keeps its arguments.
+    ``warm_dense`` counts dense calls that carried warm seeds."""
 
     def __init__(self, knn_mod):
         self.mod = knn_mod
         self.calls = {}
         self.orig = {}
+        self.warm_dense = 0
 
     def __enter__(self):
         for key in KERNEL_INFO:
@@ -76,6 +92,7 @@ class Recorder:
 
             def rec(*args, _key=key, _orig=orig, **kw):
                 out = _orig(*args, **kw)
+                self.warm_dense += _key == "dense" and args[3] is not None
                 size = args[0].shape[0] * args[1].shape[0]
                 if _key not in self.calls or size >= self.calls[_key][0]:
                     self.calls[_key] = (size, args)
@@ -122,56 +139,117 @@ def compare_call(knn, key, args, tag, stats, *, timing=False):
     q2 = (q * q).sum(1)
     d_k = (q2 - 2 * s_k[v].double()).clamp(min=0)
     d_p = (q2 - 2 * s_p[v].double()).clamp(min=0)
-    # fp32 rounding of the expanded score |q|^2 - 2 q.r + |r|^2: a few ulps
-    # of the magnitudes that cancel in it.
-    tol = 2e-5 * (1.0 + q2)
+    r = r4[:, :3].double()
+    r_k, r_p = r[i_k[v].long()], r[i_p[v].long()]
+    # The float32 rounding bound of the two scores, from the rows picked.
+    tol = torch.maximum(knn.fp32_distance_bound(q, r_k), knn.fp32_distance_bound(q, r_p))
     err = (d_k - d_p).abs()
     if bool((err > tol).any()):
         bad = int((err > tol).sum())
         fail(f"{key} {tag}: {bad} distances differ from the plain version "
              f"(max {float(err.max()):.3g})")
     # Indices must agree wherever the nearest neighbour is unique: where they
-    # differ, both picks must be equally near (in float64) within tolerance.
-    diff = (i_k[v] != i_p[v]).nonzero()[:, 0]
-    if diff.numel():
-        r = r4[:, :3].double()
-        dk = ((q[diff] - r[i_k[v][diff].long()]) ** 2).sum(1)
-        dp = ((q[diff] - r[i_p[v][diff].long()]) ** 2).sum(1)
-        if bool(((dk - dp).abs() > tol[diff]).any()):
-            fail(f"{key} {tag}: indices differ where the nearest neighbour is unique")
+    # differ, the two picks' float64 distances may differ by the rounding
+    # bound at most (a tie in float32).
+    diff = i_k[v] != i_p[v]
+    gap = (((q - r_k) ** 2).sum(1) - ((q - r_p) ** 2).sum(1)).abs()[diff]
+    if bool((gap > tol[diff]).any()):
+        fail(f"{key} {tag}: {int((gap > tol[diff]).sum())} indices differ where the "
+             f"nearest neighbour is unique (largest float64 gap {float(gap.max()):.3g})")
     st = stats.setdefault(key, {"max_abs_err": 0.0, "checks": 0})
     st["max_abs_err"] = max(st["max_abs_err"], float(err.max()) if nq else 0.0)
     st["checks"] += 1
+    n_diff = int(gap.numel())
     line = {"phase": "kernels", "kernel": key, "case": tag, "nq": nq,
             "nr": int(args[-2]), "max_abs_err": float(err.max()) if nq else 0.0,
-            "tol": "2e-5*(1+|q|^2)", "index_mismatches_at_ties": int(diff.numel())}
+            "max_err_over_tol": float((err / tol.clamp(min=1e-30)).max()) if nq else 0.0,
+            "tol": "fp32_distance_bound (ops/knn.py)",
+            "index_mismatches": n_diff,
+            "mismatch_exact_ties": int((gap == 0).sum()),
+            "mismatch_gap_max": float(gap.max()) if n_diff else 0.0,
+            "mismatch_gap_over_tol_max":
+                float((gap / tol[diff].clamp(min=1e-30)).max()) if n_diff else 0.0}
     if timing:
         line.update(measure(knn, key, args, kern, plain))
-        st.update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "case",
-                                         "cdist_ms")})
+        st.update({k: line[k] for k in ("ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "case", "cdist_ms", "visited_pairs",
+                                         "visit_max", "visit_mean")})
     print(json.dumps(line), flush=True)
 
 
 def measure(knn, key, args, kern, plain):
-    """Kernel and plain times (CUDA events, median), and the bound."""
+    """The wrapper's device time (every kernel one call launches: the KNN
+    kernel and its helpers, from the profiler) with the KNN kernel's share,
+    the wrapper's call time and the plain version's (CUDA events around a
+    call, median), the pairs scored with their spread over blocks or work
+    items, and the bound."""
     import torch
 
     q4, r4 = args[0], args[1]
-    n_qt = q4.shape[0] // knn.QT
-    visits = torch.zeros(n_qt, dtype=torch.int32, device=q4.device)
-    kern(*args, visits=visits)
-    torch.cuda.synchronize()
-    pairs = int(visits.long().sum()) * knn.QT
-    ms = timed(lambda: kern(*args), 20)
+    pairs, per_block = visits(knn, key, args)
+    ms, kernel_ms = device_ms(lambda: kern(*args), f"knn_{key}_kernel", 10)
+    call_ms = timed(lambda: kern(*args), 20)
     plain_ms = timed(lambda: plain(*args), 3)
     nbytes = sum(t.numel() * t.element_size() for t in args
                  if isinstance(t, torch.Tensor)) + q4.shape[0] * 8
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+    return {"ms": ms, "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "visited_pairs": pairs, "bytes": nbytes,
+            "visited_pairs": pairs, "visit_max": int(per_block.max()),
+            "visit_mean": float(per_block.double().mean()), "bytes": nbytes,
             "cdist_ms": timed(lambda: cdist_min(q4[:args[-3], :3], r4[:args[-2], :3]), 3)}
+
+
+def visits(knn, key, args):
+    """The (query, ref) pairs one call of the kernel scores, and the pairs of
+    each unit that ran: a block of the resident kernel (which records ref
+    rows per query tile), a work item of the walk kernels (rows, pairs)."""
+    import torch
+
+    kern, q4 = getattr(knn, f"{key}_kernel"), args[0]
+    n_qt = q4.shape[0] // knn.QT
+    if key == "resident":
+        v = torch.zeros(n_qt, dtype=torch.int32, device=q4.device)
+        kern(*args, visits=v)
+        per = v.long() * knn.QT
+        return int(per.sum()), per
+    v = torch.zeros(knn.walk_items_max(n_qt), 2, dtype=torch.int64, device=q4.device)
+    kern(*args, visits=v)
+    ran = v[v[:, 0] > 0]
+    per = ran[:, 1] if ran.shape[0] else v[:1, 1]
+    return int(per.sum()), per
+
+
+def device_ms(fn, kernel: str, reps: int):
+    """Device time per call of ``fn`` (every kernel it launches) and of the
+    kernel named ``kernel`` alone, means over ``reps`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    others = named = count = 0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if not dev_us or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if evt.key.startswith(kernel):
+            named, count = named + dev_us, count + evt.count
+        else:
+            others += dev_us
+    if not count:
+        fail(f"the profiler saw no launch of {kernel}")
+    # The profiler may drop an event: the named kernel's mean is over the
+    # launches it saw.
+    kernel_ms = named / count / 1e3
+    return kernel_ms + others / reps / 1e3, kernel_ms
 
 
 def cdist_min(q, r):
@@ -186,31 +264,46 @@ def cdist_min(q, r):
         torch.cdist(q[s:s + step], r).min(dim=1)
 
 
-def surface_points(n, gen, device, noise=0.0):
+def surface_points(n, gen, noise=0.0):
     """Points on the synthetic scene's box walls (4 x 3 x 5 m), optionally
     pushed off the surface by Gaussian noise."""
     import torch
 
-    box = torch.tensor([4.0, 3.0, 5.0], device=device)
-    p = torch.rand(n, 3, generator=gen, device=device) * box
-    axis = torch.randint(0, 3, (n,), generator=gen, device=device)
-    side = torch.randint(0, 2, (n,), generator=gen, device=device).float()
-    rows = torch.arange(n, device=device)
-    p[rows, axis] = side * box[axis]
+    dev = gen.device
+    box = torch.tensor([4.0, 3.0, 5.0], device=dev)
+    p = torch.rand(n, 3, generator=gen, device=dev) * box
+    axis = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    side = torch.randint(0, 2, (n,), generator=gen, device=dev).float()
+    p[torch.arange(n, device=dev), axis] = side * box[axis]
     if noise:
-        p = p + noise * torch.randn(n, 3, generator=gen, device=device)
+        p = p + noise * torch.randn(n, 3, generator=gen, device=dev)
     return p
 
 
-def view_points(n, gen, device, noise=0.01):
-    """``n`` points of the walls near one corner of the box (x < 1.5,
-    y < 1.5, z < 2 m): the surface one camera view holds, like a frame's
-    queries."""
-    p = surface_points(16 * n, gen, device, noise)
+def view_points(n, gen):
+    """``n`` wall points near one corner of the box (x < 1.5, y < 1.5,
+    z < 2 m): the surface one camera view holds, like a frame's queries."""
+    p = surface_points(16 * n, gen, 0.01)
     p = p[(p[:, 0] < 1.5) & (p[:, 1] < 1.5) & (p[:, 2] < 2.0)]
     if p.shape[0] < n:
         fail("too few view points drawn")
     return p[:n].contiguous()
+
+
+def dense_args(knn, q, r, init):
+    """The dense kernel's arguments for a warm call, built as the dispatcher
+    builds them (queries unsorted, seeds re-scored)."""
+    import torch
+
+    nq, nr = q.shape[0], r.shape[0]
+    q4 = knn._pad_rows(torch.cat([q, q.new_ones(nq, 1)], 1), -(-nq // knn.QT) * knn.QT)
+    r4 = knn._pad_rows(torch.cat([r, -0.5 * (r * r).sum(1, keepdim=True)], 1),
+                       -(-nr // knn.RT) * knn.RT)
+    r4[nr:, 3] = knn.NEG
+    nn0 = r[init.long()]
+    s0 = knn._pad_rows((q * nn0).sum(1) - 0.5 * (nn0 * nn0).sum(1), q4.shape[0], knn.NEG)
+    i0 = knn._pad_rows(init.int(), q4.shape[0])
+    return (q4, r4, knn._tile_boxes(r4[:, :3], knn.RT), s0, i0, nq, nr, knn.RT)
 
 
 def phase_kernels(knn, spatial_sort, stats):
@@ -245,7 +338,7 @@ def phase_kernels(knn, spatial_sort, stats):
         nr_ = r.shape[0] if nr is None else nr
         if nr_ * q.shape[0] <= 4e9:
             want = oracle(q, r, nr_)
-            tol = 2e-5 * (1.0 + (q.double() ** 2).sum(1))
+            tol = knn.fp32_distance_bound(q.double(), r[i.long()].double())
             if bool(((d.double() - want).abs() > tol).any()):
                 fail(f"dispatcher {tag}: distances differ from the float64 oracle")
             via = ((q.double() - r[i.long()].double()) ** 2).sum(1)
@@ -266,33 +359,43 @@ def phase_kernels(knn, spatial_sort, stats):
         check_dispatch(f"{nq}x{nr} nr/2", q, r, nr=nr // 2)
 
     # Main-path-like shapes: 81,920 queries near the scene's surfaces.
-    q = surface_points(81920, gen, dev, noise=0.01)
-    r = surface_points(65536, gen, dev)
+    q = surface_points(81920, gen, 0.01)
+    r = surface_points(65536, gen)
     _, _, used = check_dispatch("81920x65536 cold", q, r, timing=True)
     if "resident" not in used:
         fail("the 65,536-row cold search did not take the resident kernel")
-    r = surface_points(196608, gen, dev)
+    r = surface_points(196608, gen)
     approx = torch.randint(0, r.shape[0], (q.shape[0],), generator=gen, device=dev)
-    _, _, used = check_dispatch("81920x196608 warm", q, r, init=approx.int(),
-                                timing=True)
-    if "dense" not in used:
-        fail("the 196,608-row warm search did not take the dense kernel")
+    _, _, used = check_dispatch("81920x196608 warm", q, r, init=approx.int(), timing=True)
+    if used != {"cand"}:
+        fail(f"the 196,608-row warm search launched {sorted(used)}, not the candidate "
+             "kernel alone")
+    # The dense kernel on the same warm call, as the dispatcher before the
+    # candidate table's wide tier built it (queries unsorted).
+    compare_call(knn, "dense", dense_args(knn, q, r, approx), "81920x196608 warm, dense",
+                 stats, timing=True)
     n_map = 1_500_000
-    pts = surface_points(n_map, gen, dev)
+    pts = surface_points(n_map, gen)
     sm = spatial_sort.sort_map_points(pts, n_map)
-    qv = view_points(81920, gen, dev)
+    qv = view_points(81920, gen)
     _, coarse = dispatch(qv, sm.points[::16].contiguous())  # a strided seed pass
     seed = (coarse.long() * 16).int()
     _, _, used = check_dispatch("81920x1.5M sorted warm", qv, sm.points, init=seed,
                                 timing=True)
     if "cand" not in used:
         fail("the 1.5M-row seeded search did not take the candidate kernel")
-    # Forced overflow: unseeded queries against > 2 * 131,072 rows make every
-    # tile a candidate, so the dispatcher falls back to the dense kernel.
-    none = torch.full((q.shape[0],), -1, dtype=torch.int32, device=dev)
-    _, _, used = check_dispatch("81920x300000 overflow", q, sm.points[:300000], init=none)
+    # A cold search past the resident limit: the dense kernel's remaining role.
+    _, _, used = check_dispatch("81920x300000 cold", q, sm.points[:300000], timing=True)
     if used != {"dense"}:
-        fail(f"the overflow call launched {sorted(used)}, not the dense kernel alone")
+        fail(f"the 300,000-row cold search launched {sorted(used)}, not the dense kernel")
+    # Unseeded warm queries list every tile for every query tile (the table
+    # overflow that used to fall back to dense): the candidate kernel takes
+    # them, its full lists split over several blocks.
+    none = torch.full((q.shape[0],), -1, dtype=torch.int32, device=dev)
+    _, _, used = check_dispatch("81920x300000 unseeded warm", q, sm.points[:300000],
+                                init=none, timing=True)
+    if used != {"cand"}:
+        fail(f"the unseeded warm call launched {sorted(used)}, not the candidate kernel")
 
 
 def phase_main(knn, stats):
@@ -334,6 +437,8 @@ def phase_main(knn, stats):
     for key in ("resident", "cand"):
         if launches[key] == 0:
             fail(f"the main path launched no {key} kernel")
+    if rec.warm_dense:
+        fail(f"{rec.warm_dense} warm calls of the main path took the dense kernel")
     # The largest main-path call of each kernel: kernel vs plain, timed.
     for key, (_, args) in rec.calls.items():
         compare_call(knn, key, args, "main path", stats, timing=True)
@@ -429,8 +534,11 @@ def main() -> int:
         kernels.append({"name": kname, "route": "cuda", "source": SOURCE,
                         "replaces": replaces, "launches": launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
+                        "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),
                         "bound_by": st.get("bound_by"), "library_ms": None,
+                        "call_ms": st.get("call_ms"), "visited_pairs": st.get("visited_pairs"),
+                        "visit_max": st.get("visit_max"), "visit_mean": st.get("visit_mean"),
                         "check_launches": st.get("check_launches", 0),
                         "cdist_ms": st.get("cdist_ms")})
     print(json.dumps({"phase": "done", "seconds": time.perf_counter() - t0}), flush=True)

@@ -13,7 +13,7 @@ counts, warm-seed re-scoring, the per-tile bounding boxes, the query Morton
 sort, the candidate table, the choice of kernel and the unsort. Three
 kernel wrappers do the search itself:
 
-  * ``dense_kernel``    every ref tile, newest first;
+  * ``dense_kernel``    every valid ref tile, newest first;
   * ``cand_kernel``     the ref tiles a per-query-tile table lists;
   * ``resident_kernel`` refs of at most ``RES_MAX_ROWS`` rows in sub-tiles.
 
@@ -22,7 +22,9 @@ and runs its plain PyTorch version for CPU tensors; on a CUDA tensor it
 launches or raises, it never falls back. Each wrapper counts its launches
 in a plain integer attribute, ``launches``. The plain versions take the
 same arguments and compute the same function; they visit tiles in the
-kernels' order but do not prune (pruning never changes the result).
+kernels' order but do not prune (pruning never changes the result). The
+dense and candidate kernels split a long tile list over several blocks and
+merge the splits; ``cand_split_plain`` is the plain version of that rule.
 
 The tile constants are module attributes so that tests can shrink them.
 """
@@ -38,14 +40,16 @@ from e2eslam_tpu_torch.ops.spatial_sort import morton_codes
 
 Tensor = torch.Tensor
 
-QT = 256  # query tile: one CUDA block, one query per thread
-RT = 8192  # dense ref tile
+QT = 256  # query tile: a table row, a resident-kernel block, a few warps in the others
+RT = 2048  # dense ref tile
 RT_CAND = 2048  # candidate-table ref tile
-MAX_CAND = 128  # candidate-table width (tiles per query tile)
+MAX_TABLE_TILES = 2048  # most query tiles a warm call takes the candidate table for
 RES_MAX_ROWS = 1 << 17  # largest ref set the resident kernel takes
 ST = 2048  # resident sub-tile
 NEG = -1e30  # bias of invalid refs
 _MAX_SUBTILES = 1024  # resident sub-tiles a CUDA block can bound (knn.cu)
+SPLIT_MIN = 2  # list entries per work item of the dense and candidate kernels, at least
+MAX_SPLITS = 32  # work items a query group's list is split into, at most
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -78,21 +82,49 @@ def dense_plain(q4, r4, rbb, s0, i0, nq, nr, rt):
     return best_s, best_i
 
 
-def cand_plain(q4, r4, rbb, s0, i0, cand, cnt, nq, nr, rt):
+def _table_walk(q4, r4, s0, i0, cand, cnt, nr, rt):
     """Running max over the tiles ``cand[i, :cnt[i]]`` of each query tile,
-    in table order."""
+    in table order; also the table column of each winner (-1: the seed)."""
     n_qt, mc = cand.shape
     qv = q4.view(n_qt, -1, 4)
     tiles = r4.view(-1, rt, 4)
     best_s, best_i = (t.view(n_qt, -1) for t in _seeds(q4, s0, i0))
+    best_p = torch.full_like(best_i, -1)
     for j in range(min(int(cnt.max()), mc) if n_qt else 0):
+        # Entries naming no valid tile are skipped, as the kernels skip them.
         jr = cand[:, j].long()
-        run = (j < cnt) & (jr * rt < nr)
+        run = (j < cnt) & (jr >= 0) & (jr < tiles.shape[0]) & (jr * rt < nr)
+        jr = jr.clamp(0, tiles.shape[0] - 1)
         m, a = torch.bmm(qv, tiles[jr].transpose(1, 2)).max(dim=2)
         m = torch.where(run[:, None], m, torch.full_like(m, -float("inf")))
         a = (a + (jr * rt)[:, None]).to(torch.int32)
+        best_p = torch.where(m > best_s, j, best_p)
         best_s, best_i = _take_better(best_s, best_i, m, a)
-    return best_s.reshape(-1), best_i.reshape(-1)
+    return best_s.reshape(-1), best_i.reshape(-1), best_p.reshape(-1)
+
+
+def cand_plain(q4, r4, rbb, s0, i0, cand, cnt, nq, nr, rt):
+    """Running max over the tiles ``cand[i, :cnt[i]]`` of each query tile,
+    in table order."""
+    return _table_walk(q4, r4, s0, i0, cand, cnt, nr, rt)[:2]
+
+
+def cand_split_plain(q4, r4, rbb, s0, i0, cand, cnt, nq, nr, rt, splits: int):
+    """The candidate kernel's split and merge, in plain torch: split ``s``
+    walks table positions ``s, s + splits, ...`` from the seed; the merge
+    takes the higher score, then the lower table position (the seed is
+    position -1). Equal to ``cand_plain`` (the sequential walk)."""
+    parts = []
+    for s in range(splits):
+        n = ((cnt - s).clamp(min=0) + splits - 1) // splits
+        sc, ix, p = _table_walk(q4, r4, s0, i0, cand[:, s::splits].contiguous(), n, nr, rt)
+        parts.append((sc, ix, torch.where(p >= 0, s + p * splits, p)))
+    best_s, best_i, best_p = parts[0]
+    for sc, ix, p in parts[1:]:
+        take = (sc > best_s) | ((sc == best_s) & (p < best_p))
+        best_s, best_i = torch.where(take, sc, best_s), torch.where(take, ix, best_i)
+        best_p = torch.where(take, p, best_p)
+    return best_s, best_i
 
 
 def _tile_boxes(pts: Tensor, tile: int) -> Tensor:
@@ -136,9 +168,10 @@ def resident_plain(q4, r4, rbb, s0, i0, nq, nr, st):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "knn_dense_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "knn_cand_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "knn_dense_launch": [_P] * 5 + [_I] * 8 + [_P] * 6,
+    "knn_cand_launch": [_P] * 8 + [_I] * 9 + [_P] * 6,
     "knn_resident_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "knn_walk_config": [ctypes.POINTER(_I)],
 }
 
 
@@ -209,21 +242,88 @@ class _Wrapper:
         return self._fn(self, *args, **kwargs)
 
 
+_WALK_CONFIG = {}
+
+
+def walk_config() -> dict:
+    """The dense and candidate kernels' compile-time shape, read from the
+    built library (``knn.cu`` owns it): ``qpt`` queries per thread,
+    ``chunk`` ref rows staged at a time, ``group`` rows per running max."""
+    if not _WALK_CONFIG:
+        out = (_I * 3)()
+        _fn("knn_walk_config")(out)
+        _WALK_CONFIG.update(qpt=out[0], chunk=out[1], group=out[2])
+    return _WALK_CONFIG
+
+
+def walk_items_max(n_qt: int) -> int:
+    """The most work items of a dense or candidate kernel call: one per
+    query group (``32 * qpt`` queries, one warp) and share of its list."""
+    return n_qt * (QT // (32 * walk_config()["qpt"])) * MAX_SPLITS
+
+
+def fp32_distance_bound(q: Tensor, r: Tensor) -> Tensor:
+    """How far two float32 evaluations of ``|q - r|^2`` may differ, per row,
+    for the kernels' and plain versions' arithmetic (``q``, ``r`` float64
+    ``[n, 3]``, ``r`` the row either picked). A score ``q.r - 0.5 |r|^2`` is
+    a 4-term float32 dot product, off by at most ``4u S`` (``u = 2^-24``,
+    ``S = |q||r| + 0.5 |r|^2`` bounds the terms' magnitudes); two such scores
+    differ by ``8u S``, ``16u S`` once doubled into a distance; forming
+    ``|q|^2 - 2 s`` in float32 adds ``4u |q|^2``. The same bound caps the
+    float64 gap between two rows that two correct searches may pick."""
+    qn, rn2 = q.norm(dim=1), (r * r).sum(dim=1)
+    return 2.0 ** -24 * (16.0 * (qn * rn2.sqrt() + 0.5 * rn2) + 4.0 * qn * qn)
+
+
+def _walk(symbol, q4, r4, rbb, s0, i0, table, nq, nr, rt, visits):
+    """Launch a walk kernel: dense (``table`` None: every valid tile for
+    every query tile) or candidate (``table = (cand, cnt)``)."""
+    n_qt = q4.shape[0] // QT
+    cfg = walk_config()
+    per_tile = QT // (32 * cfg["qpt"])
+    if QT % (32 * cfg["qpt"]):
+        raise ValueError(f"QT={QT}: the walk kernels need a multiple of {32 * cfg['qpt']}")
+    if rt % cfg["group"] or rt % min(cfg["chunk"], rt):
+        raise ValueError(f"rt={rt}: the walk kernels stage chunks of min({cfg['chunk']}, rt) "
+                         f"rows, in groups of {cfg['group']}")
+    items_max = walk_items_max(n_qt)
+    if visits is not None and (visits.device != q4.device or visits.dtype != torch.int64
+                               or tuple(visits.shape) != (items_max, 2)):
+        raise ValueError(f"visits must be int64 [{items_max}, 2] on {q4.device}")
+    # The kernel counts each query group's shares itself (no host
+    # synchronisation); one zero-filled buffer holds its merged maxima and
+    # its queue counters.
+    order = None
+    if table is not None:
+        cand, cnt = table
+        # The query tiles with the longest lists start first.
+        order = torch.argsort(cnt, descending=True, stable=True).to(torch.int32)
+    groups = n_qt * per_tile
+    scratch = torch.zeros(q4.shape[0] + groups // 2 + 1, dtype=torch.int64, device=q4.device)
+    head = () if table is None else (
+        cand.data_ptr(), cnt.data_ptr(), order.data_ptr(), cand.shape[1])
+    out_s, out_i = _outputs(q4)
+    _launch(symbol, q4.data_ptr(), r4.data_ptr(), rbb.data_ptr(), _ptr(s0), _ptr(i0), *head,
+            n_qt, QT, nq, nr, r4.shape[0] // rt, rt, SPLIT_MIN, MAX_SPLITS, out_s.data_ptr(),
+            out_i.data_ptr(), scratch.data_ptr(), scratch[q4.shape[0]:].data_ptr(),
+            _ptr(visits))
+    return out_s, out_i
+
+
 @_Wrapper
 def dense_kernel(self, q4, r4, rbb, s0, i0, nq: int, nr: int, rt: int, visits=None):
     """Replaces ``_dense_pallas_call``. ``q4 [n_qt*QT, 4]``, ``r4 [nrt*rt, 4]``,
     ``rbb [nrt, 8]``, seeds ``s0/i0 [n_qt*QT]`` or None. Returns the best
-    score and index per query row. ``visits`` (optional int32 ``[n_qt]``,
-    CUDA only) receives the ref rows each query tile visited."""
+    score and index per query row. ``visits`` (optional, CUDA only): int64
+    ``[walk_items_max(n_qt), 2]`` of zeros, which receives per work item
+    (one query group's share of its list) the ref rows it staged and the
+    (query, ref) pairs it scored; rows past the call's items stay zero."""
     if not q4.is_cuda:
         return dense_plain(q4, r4, rbb, s0, i0, nq, nr, rt)
-    _check(q4, r4, rbb, s0, i0, visits, rt)
-    out_s, out_i = _outputs(q4)
-    _launch("knn_dense_launch", q4.data_ptr(), r4.data_ptr(), rbb.data_ptr(), _ptr(s0),
-            _ptr(i0), q4.shape[0] // QT, QT, nq, nr, r4.shape[0] // rt, rt,
-            out_s.data_ptr(), out_i.data_ptr(), _ptr(visits))
+    _check(q4, r4, rbb, s0, i0, None, rt)
+    out = _walk("knn_dense_launch", q4, r4, rbb, s0, i0, None, nq, nr, rt, visits)
     self.launches += 1
-    return out_s, out_i
+    return out
 
 
 @_Wrapper
@@ -234,17 +334,13 @@ def cand_kernel(self, q4, r4, rbb, s0, i0, cand, cnt, nq: int, nr: int, rt: int,
     int32 (entries used); seeds are required."""
     if not q4.is_cuda:
         return cand_plain(q4, r4, rbb, s0, i0, cand, cnt, nq, nr, rt)
-    _check(q4, r4, rbb, s0, i0, visits, rt, ("cand", cand, torch.int32),
+    _check(q4, r4, rbb, s0, i0, None, rt, ("cand", cand, torch.int32),
            ("cnt", cnt, torch.int32))
     if s0 is None or cand.shape[0] != q4.shape[0] // QT or cnt.shape != cand.shape[:1]:
         raise ValueError("cand_kernel needs seeds and a [n_qt, MC] table with [n_qt] counts")
-    out_s, out_i = _outputs(q4)
-    _launch("knn_cand_launch", q4.data_ptr(), r4.data_ptr(), rbb.data_ptr(), s0.data_ptr(),
-            i0.data_ptr(), cand.data_ptr(), cnt.data_ptr(), cand.shape[1],
-            q4.shape[0] // QT, QT, nq, nr, rt, out_s.data_ptr(), out_i.data_ptr(),
-            _ptr(visits))
+    out = _walk("knn_cand_launch", q4, r4, rbb, s0, i0, (cand, cnt), nq, nr, rt, visits)
     self.launches += 1
-    return out_s, out_i
+    return out
 
 
 @_Wrapper
@@ -309,20 +405,21 @@ def knn(query: Tensor, ref: Tensor, nr=None, nq=None, init_idx=None,
 
     # Candidate-table gate and query Morton sort (knn.py:340-386 of the JAX
     # package): sorted queries make each query tile spatially tight, so its
-    # seeded threshold and candidate set stay small.
+    # seeded threshold and candidate set stay small. The table is as wide as
+    # the valid ref tiles, so it cannot overflow and the call makes no host
+    # decision. It is taken whenever the call is warm, the refs are too many
+    # for the resident kernel (which holds small ref sets whole) and there
+    # are at most MAX_TABLE_TILES query tiles (the frame->map search has
+    # 320), which bounds the table's size; any other call takes the resident
+    # or the dense kernel.
     rt_c = min(RT_CAND, RT)
     nrt_c = nr_pad // rt_c
     warm = init_idx is not None
     n_qt = nq_pad // QT
-    if n_qt <= 2048:
-        mc, sort_queries = MAX_CAND, True
-    elif n_qt <= 16384:
-        mc, sort_queries = 8, False
-    else:
-        mc, sort_queries = None, False
-    use_cand = warm and mc is not None and nrt_c > mc
+    resident_fits = nr_pad <= RES_MAX_ROWS and nr_pad % min(ST, RT) == 0
+    use_cand = warm and not resident_fits and n_qt <= MAX_TABLE_TILES
     qperm = None
-    if use_cand and sort_queries:
+    if use_cand:
         if q_perm is not None:
             qperm = q_perm.to(device=dev, dtype=torch.int64)
         else:
@@ -348,50 +445,37 @@ def knn(query: Tensor, ref: Tensor, nr=None, nq=None, init_idx=None,
         s0 = _pad_rows(torch.where(ok, s0, torch.full_like(s0, NEG)), nq_pad, NEG)
         i0 = _pad_rows(torch.where(ok, ii, torch.zeros_like(ii)).to(torch.int32), nq_pad)
 
-    def fallback():
-        # The resident kernel when the whole ref set is small, else dense.
-        if nr_pad <= RES_MAX_ROWS and nr_pad % min(ST, RT) == 0:
-            st = min(ST, RT)
-            return resident_kernel(q4, r4, _tile_boxes(r_pad, st), s0, i0, nq, nr, st)
-        return dense_kernel(q4, r4, _tile_boxes(r_pad, RT), s0, i0, nq, nr, RT)
-
     if use_cand:
-        # Per query tile, every ref tile whose box gap is below the tile's
-        # seeded worst-best distance, best first. The ulp guard admits
+        # Per query tile, every valid ref tile whose box gap is below the
+        # tile's seeded worst-best distance, best first. The ulp guard admits
         # borderline tiles the kernel's own bound might still visit.
         q2p = (q4 * q4).sum(dim=1) - 1.0
         col = torch.arange(nq_pad, device=dev)
         d2_0 = torch.where(col < nq, q2p - 2.0 * s0, torch.full_like(q2p, -float("inf")))
         wb0 = d2_0.view(n_qt, QT).amax(dim=1)
         rbb_c = _tile_boxes(r_pad, rt_c)
-        lb2 = _box_gap2(_tile_boxes(q4, QT), rbb_c)
-        tile_valid = torch.arange(nrt_c, device=dev) * rt_c < nr
+        width = max(1, min(nrt_c, -(-nr // rt_c)))
+        lb2 = _box_gap2(_tile_boxes(q4, QT), rbb_c[:width])
+        tile_valid = torch.arange(width, device=dev) * rt_c < nr
         lb2 = torch.where(tile_valid[None, :], lb2, torch.full_like(lb2, float("inf")))
         thresh = wb0 * (1.0 + 1e-6) + 1e-9
         is_cand = lb2 < thresh[:, None]
-        counts = is_cand.sum(dim=1)
-        # The JAX package chooses with lax.cond on the device; here it is a
-        # host branch, one synchronisation per call.
-        fits = int(counts.max()) <= mc
-        if fits:
-            order = torch.argsort(
-                torch.where(is_cand, lb2, torch.full_like(lb2, float("inf"))),
-                dim=1, stable=True)[:, :mc]
-            cnt = counts.clamp(max=mc)
-            last = order.gather(1, (cnt - 1).clamp(min=0)[:, None])
-            jj = torch.arange(mc, device=dev)
-            cand = torch.where(jj[None, :] < cnt.clamp(min=1)[:, None], order, last)
-            best_s, best_i = cand_kernel(q4, r4, rbb_c, s0, i0, cand.to(torch.int32).contiguous(),
-                                         cnt.to(torch.int32), nq, nr, rt_c)
-        else:
-            best_s, best_i = fallback()
+        counts = is_cand.sum(dim=1).to(torch.int32)
+        order = torch.argsort(torch.where(is_cand, lb2, torch.full_like(lb2, float("inf"))),
+                              dim=1, stable=True).to(torch.int32)
+        best_s, best_i = cand_kernel(q4, r4, rbb_c, s0, i0, order.contiguous(), counts,
+                                     nq, nr, rt_c)
+    elif resident_fits:
+        # The resident kernel when the whole ref set is small, else dense.
+        st = min(ST, RT)
+        best_s, best_i = resident_kernel(q4, r4, _tile_boxes(r_pad, st), s0, i0, nq, nr, st)
     else:
-        best_s, best_i = fallback()
+        best_s, best_i = dense_kernel(q4, r4, _tile_boxes(r_pad, RT), s0, i0, nq, nr, RT)
 
     best_s, best_i = best_s[:Nq], best_i[:Nq]
     d2 = ((q * q).sum(dim=1) - 2.0 * best_s).clamp(min=0.0)
     if qperm is not None:
         # Row p of the sorted results belongs to query qperm[p].
-        d2 = torch.empty_like(d2).index_put_((qperm,), d2)
-        best_i = torch.empty_like(best_i).index_put_((qperm,), best_i)
+        d2 = torch.empty_like(d2).scatter_(0, qperm, d2)
+        best_i = torch.empty_like(best_i).scatter_(0, qperm, best_i)
     return d2, best_i

@@ -8,9 +8,11 @@ installed; there, skip this directory's conftest (it sets JAX up):
 
 Tolerances: the kernels score with fused multiply-adds in row order, the
 plain versions with a matrix product, so the float32 score
-``q.r - 0.5 |r|^2`` rounds differently; distances then agree to a few ulps
-of ``|q|^2`` (2e-5 * (1 + |q|^2)). Indices must be equal wherever the
-nearest neighbour is unique; where they differ, both picks are equally near.
+``q.r - 0.5 |r|^2`` rounds differently; distances then agree to its
+rounding bound (``K.fp32_distance_bound``, about ``1.7e-6 |q|^2`` for a ref
+near the query). Indices must be equal wherever the nearest neighbour is
+unique; where they differ, the two picks' float64 distances differ by that
+bound at most.
 """
 
 import numpy as np
@@ -43,22 +45,36 @@ def _clustered(rng, n_tiles, tile, nq):
 def _assert_same_nn(q4, r4, s_k, i_k, s_p, i_p, nq):
     q = q4[:nq, :3].double()
     q2 = (q * q).sum(1)
-    tol = 2e-5 * (1.0 + q2)
+    r = r4[:, :3].double()
+    r_k, r_p = r[i_k[:nq].long()], r[i_p[:nq].long()]
+    tol = torch.maximum(K.fp32_distance_bound(q, r_k), K.fp32_distance_bound(q, r_p))
     d_k = (q2 - 2 * s_k[:nq].double()).clamp(min=0)
     d_p = (q2 - 2 * s_p[:nq].double()).clamp(min=0)
     assert bool(((d_k - d_p).abs() <= tol).all())
-    diff = (i_k[:nq] != i_p[:nq]).nonzero()[:, 0]
-    r = r4[:, :3].double()
-    via_k = ((q[diff] - r[i_k[:nq][diff].long()]) ** 2).sum(1)
-    via_p = ((q[diff] - r[i_p[:nq][diff].long()]) ** 2).sum(1)
-    assert bool(((via_k - via_p).abs() <= tol[diff]).all())
+    gap = ((q - r_k) ** 2).sum(1) - ((q - r_p) ** 2).sum(1)
+    assert bool((gap.abs() <= tol).all())
+
+
+def _assert_near_oracle(q, r, d, i, nr):
+    """Dispatcher results against a float64 brute force."""
+    q64, r64 = q.double(), r[:nr].double()
+    want = torch.empty(q.shape[0], dtype=torch.float64, device=q.device)
+    for s in range(0, q.shape[0], 4096):
+        want[s:s + 4096] = (torch.cdist(q64[s:s + 4096], r64) ** 2).min(1).values
+    tol = K.fp32_distance_bound(q64, r[i.long()].double())
+    assert bool(((d.double() - want).abs() <= tol).all())
+    via = ((q64 - r[i.long()].double()) ** 2).sum(1)
+    assert bool(((via - want).abs() <= tol).all())
+    assert bool((i < nr).all())
 
 
 def _args(dev, kernel, seeded, nr=60_000):
-    """One call's arguments, as the dispatcher builds them."""
+    """One call's arguments, as the dispatcher builds them. The candidate
+    table is long and unbalanced: most query tiles list a few tiles, every
+    seventh lists them all, so the kernel's split and merge both run."""
     rng = np.random.default_rng(17)
     tile = K.RT if kernel == "dense" else K.ST if kernel == "resident" else K.RT_CAND
-    n_tiles = 8 * K.RT // tile
+    n_tiles = 64 * 2048 // tile
     q, r = _clustered(rng, n_tiles, tile, 3000)
     nq = 2900
     q4 = K._pad_rows(torch.cat([torch.from_numpy(q), torch.ones(3000, 1)], 1),
@@ -77,11 +93,11 @@ def _args(dev, kernel, seeded, nr=60_000):
     if kernel == "cand":
         n_qt, n_rt = q4.shape[0] // K.QT, r4.shape[0] // tile
         g = torch.Generator(device="cpu").manual_seed(4)
-        cand = torch.stack([torch.randperm(n_rt, generator=g)[:K.MAX_CAND]
+        cand = torch.stack([torch.randperm(n_rt, generator=g)
                             for _ in range(n_qt)]).to(torch.int32).to(dev)
-        cnt = torch.randint(0, K.MAX_CAND + 1, (n_qt,), generator=g,
-                            dtype=torch.int32).to(dev)
-        return (q4, r4, rbb, s0, i0, cand, cnt, nq, nr, tile)
+        cnt = torch.randint(0, 5, (n_qt,), generator=g, dtype=torch.int32)
+        cnt[::7] = n_rt
+        return (q4, r4, rbb, s0, i0, cand, cnt.to(dev), nq, nr, tile)
     return (q4, r4, rbb, s0, i0, nq, nr, tile)
 
 
@@ -104,6 +120,13 @@ def test_kernel_matches_its_plain_version(card, kernel, seeded):
     nq = args[-3]
     _assert_same_nn(args[0], args[1], s_k, i_k, s_p, i_p, nq)
     assert bool((i_k[:nq] < nr).all() & (i_k[:nq] >= 0).all())
+    if kernel != "resident":  # the per-block visit record of the walk kernels
+        n_qt = args[0].shape[0] // K.QT
+        visits = torch.zeros(K.walk_items_max(n_qt), 2, dtype=torch.int64, device=card)
+        s_v, _ = wrapper(*args, visits=visits)
+        assert torch.equal(s_v, s_k)
+        rows, pairs = visits.sum(0).tolist()
+        assert 0 < pairs <= rows * K.QT
 
 
 @pytest.mark.cuda
@@ -113,13 +136,9 @@ def test_cuda_kernels_match_plain_versions(card):
     rng = np.random.default_rng(7)
     q, r = _clustered(rng, 200, 512, 1024)
     qc, rc = torch.from_numpy(q).to(card), torch.from_numpy(r).to(card)
-    want = (torch.cdist(qc.double(), rc.double()) ** 2).min(1).values
-    tol = 2e-5 * (1.0 + (qc.double() ** 2).sum(1))
     for init in (None, torch.full((1024,), -1, dtype=torch.int32, device=card)):
         d, i = K.knn(qc, rc, init_idx=init)
-        assert bool(((d.double() - want).abs() <= tol).all())
-        via = ((qc.double() - rc[i.long()].double()) ** 2).sum(1)
-        assert bool(((via - want).abs() <= tol).all())
+        _assert_near_oracle(qc, rc, d, i, rc.shape[0])
 
 
 @pytest.mark.cuda
@@ -132,3 +151,72 @@ def test_wrappers_raise_on_card_tensors_they_cannot_take(card):
     with pytest.raises(ValueError):
         K.dense_kernel(*args)
     assert K.dense_kernel.launches == before
+    # Tiles the walk kernels' shape, read from the built library, does not
+    # divide are refused before launch.
+    cfg = K.walk_config()
+    args = list(_args(card, "dense", True))
+    rt = cfg["chunk"] + cfg["group"]
+    args[1], args[-1] = args[1][:rt * (args[1].shape[0] // rt)].contiguous(), rt
+    args[2] = K._tile_boxes(args[1][:, :3], rt)
+    with pytest.raises(ValueError):
+        K.dense_kernel(*args)
+    qt, K.QT = K.QT, 32 * cfg["qpt"] + 32  # not a multiple of the query group
+    try:
+        with pytest.raises(ValueError):
+            K.dense_kernel(*_args(card, "dense", True))
+    finally:
+        K.QT = qt
+    assert K.dense_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_split_merge_keeps_the_sequential_tie_rule_on_the_card(card):
+    """Exact ties across a split list: queries sit on ref rows that two
+    listed tiles both hold. The kernel (its list split over several blocks)
+    must pick the earlier table position, as ``cand_plain`` does."""
+    rng = np.random.default_rng(19)
+    rt, n_tiles, n_qt = K.RT_CAND, 12, 2
+    r = rng.uniform(-1, 1, (n_tiles * rt, 3)).astype(np.float32)
+    r[9 * rt:10 * rt] = r[2 * rt:3 * rt]
+    rows = np.concatenate([rng.integers(2 * rt, 3 * rt, K.QT),
+                           rng.integers(0, n_tiles * rt, K.QT)])
+    q = r[rows]
+    rt_ = torch.from_numpy(r).to(card)
+    q4 = torch.cat([torch.from_numpy(q), torch.ones(n_qt * K.QT, 1)], 1).to(card)
+    r4 = torch.cat([rt_, (-0.5 * (rt_ * rt_).sum(1))[:, None]], 1).contiguous()
+    nr = r4.shape[0]
+    i0 = torch.from_numpy(rng.integers(0, nr, n_qt * K.QT).astype(np.int32)).to(card)
+    s0 = ((q4[:, :3] * rt_[i0.long()]).sum(1) - 0.5 * (rt_[i0.long()] ** 2).sum(1))
+    order = [[5, 9, 0, 1, 2, 3, 4, 6, 7, 8, 10, 11], [2, 5, 0, 1, 3, 4, 6, 7, 9, 8, 10, 11]]
+    cand = torch.tensor(order, dtype=torch.int32, device=card)
+    cnt = torch.tensor([12, 12], dtype=torch.int32, device=card)
+    rbb = K._tile_boxes(r4[:, :3], rt)
+    args = (q4, r4, rbb, s0.contiguous(), i0, cand, cnt, n_qt * K.QT, nr, rt)
+    s_k, i_k = K.cand_kernel(*args)
+    s_p, i_p = K.cand_plain(*args)
+    assert torch.equal(i_k, i_p)
+    assert bool((i_k[:K.QT].long() // rt == 9).all())  # tile 9 is listed first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_warm_knn_makes_no_host_synchronisation(card, with_perm):
+    """A warm frame->map call (81,920 queries, refs past the resident
+    kernel's limit) takes the candidate table and never waits on the card."""
+    rng = np.random.default_rng(23)
+    q, r = _clustered(rng, 200, 2048, 81920)
+    qc, rc = torch.from_numpy(q).to(card), torch.from_numpy(r).to(card)
+    nr = r.shape[0] - 1000
+    _, i_cold = K.knn(qc, rc, nr)
+    init = torch.where(torch.rand(81920, device=card) < 0.9, i_cold, -1)
+    perm = torch.randperm(81920, device=card) if with_perm else None
+    K.knn(qc, rc, nr, init_idx=init, q_perm=perm)  # loads the library
+    torch.cuda.synchronize()
+    before = [k.launches for k in K.KERNELS]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d, i = K.knn(qc, rc, nr, init_idx=init, q_perm=perm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [k.launches - b for k, b in zip(K.KERNELS, before)] == [0, 1, 0]
+    _assert_near_oracle(qc, rc, d, i, nr)

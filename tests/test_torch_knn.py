@@ -30,8 +30,12 @@ ATOL = 1e-5
 
 
 def _brute(q, r):
-    d2 = ((q[:, None, :].astype(np.float64) - r[None, :, :]) ** 2).sum(-1)
-    return d2.min(1), d2.argmin(1)
+    d, i = [], []
+    for s in range(0, q.shape[0], 2048):  # chunks keep the [q, r, 3] temporary small
+        d2 = ((q[s:s + 2048, None, :].astype(np.float64) - r[None, :, :]) ** 2).sum(-1)
+        d.append(d2.min(1))
+        i.append(d2.argmin(1))
+    return np.concatenate(d), np.concatenate(i)
 
 
 def _assert_nn(q, r, d, i, want_d, atol=ATOL):
@@ -137,7 +141,6 @@ def small_tiles(monkeypatch):
     monkeypatch.setattr(JAX_KNN, "_MAX_CAND", 8)
     monkeypatch.setattr(JAX_KNN, "_RES_MAX_ROWS", 1024)
     monkeypatch.setattr(port_knn_mod, "RT", 32)
-    monkeypatch.setattr(port_knn_mod, "MAX_CAND", 8)
     monkeypatch.setattr(port_knn_mod, "RES_MAX_ROWS", 1024)
     used = []
     for name in ("dense_plain", "cand_plain", "resident_plain"):
@@ -173,17 +176,111 @@ def test_candidate_table_matches_pallas(small_tiles, use_qperm):
     np.testing.assert_allclose(d, np.asarray(d_pl), atol=1e-4, rtol=1e-5)
 
 
-def test_table_overflow_falls_back_to_dense(small_tiles):
+def test_table_overflow_falls_back_to_dense(small_tiles, monkeypatch):
+    """An unseeded warm call lists every tile for every query tile. The
+    table is as wide as the valid ref tiles, so it never overflows: the
+    call takes the candidate table (and matches the Pallas table path,
+    which overflows to its dense sweep here). Only a warm call of more than
+    MAX_TABLE_TILES query tiles takes the dense kernel."""
     rng = np.random.default_rng(12)
     q, r = _clustered(rng, 140, 64, 130)
     want, _ = _brute(q, r)
     init = np.full(q.shape[0], -1, np.int32)  # unseeded: every tile qualifies
     d, i = _port(q, r, init_idx=torch.from_numpy(init))
-    assert small_tiles == ["dense_plain"]
+    assert small_tiles == ["cand_plain"]
     d_pl, _ = knn_pallas.__wrapped__(jnp.asarray(q), jnp.asarray(r), None, None,
                                      jnp.asarray(init), interpret=True)
     _assert_nn(q, r, d, i, want, atol=1e-4)
     np.testing.assert_allclose(d, np.asarray(d_pl), atol=1e-4, rtol=1e-5)
+
+    # 2049 query tiles of 8 rows: past MAX_TABLE_TILES, no table.
+    monkeypatch.setattr(port_knn_mod, "QT", 8)
+    small_tiles.clear()
+    q, r = _clustered(rng, 40, 32, 2049 * 8)  # 1280 refs: past RES_MAX_ROWS
+    init = np.full(q.shape[0], -1, np.int32)
+    d, i = _port(q, r, init_idx=torch.from_numpy(init))
+    assert small_tiles == ["dense_plain"]
+    _assert_nn(q, r, d, i, _brute(q, r)[0], atol=1e-4)
+
+
+def test_far_outlier_query_keeps_the_candidate_route(small_tiles):
+    """One query far from the map, in a query tile of well-seeded ones,
+    lists every tile for its tile; the call still takes the candidate table
+    and stays exact."""
+    rng = np.random.default_rng(14)
+    q, r = _clustered(rng, 140, 64, 512, q_tiles=1)
+    q[200] = [40.0, -40.0, 40.0]  # a surface seen for the first time
+    want, want_i = _brute(q, r)
+    init = want_i.astype(np.int32)
+    init[200] = 5000  # its seed is some far row
+    d, i = _port(q, r, init_idx=torch.from_numpy(init))
+    assert small_tiles == ["cand_plain"]
+    d_pl, _ = knn_pallas.__wrapped__(jnp.asarray(q), jnp.asarray(r), None, None,
+                                     jnp.asarray(init), interpret=True)
+    _assert_nn(q, r, d, i, want, atol=1e-4)
+    np.testing.assert_allclose(d, np.asarray(d_pl), atol=1e-4, rtol=1e-5)
+    assert i[200] == want_i[200]
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5])
+def test_split_merge_keeps_the_sequential_tie_rule(splits):
+    """The candidate kernel splits a long list over blocks and merges them.
+    With exact ties (the same ref rows in two listed tiles) the merge must
+    pick what the sequential walk (``cand_plain``) picks: the earlier table
+    position, then the lower row."""
+    K = port_knn_mod
+    rng = np.random.default_rng(15)
+    rt, n_tiles, qt = 64, 12, K.QT
+    r = rng.uniform(-1, 1, (n_tiles * rt, 3)).astype(np.float32)
+    r[9 * rt:10 * rt] = r[2 * rt:3 * rt]  # tiles 2 and 9 hold the same rows
+    r[5 * rt + 7] = r[5 * rt + 3]  # and one tie inside tile 5
+    q = (r[rng.integers(0, n_tiles * rt, 2 * qt)]
+         + rng.normal(size=(2 * qt, 3)) * 1e-3).astype(np.float32)
+    rt_ = torch.from_numpy(r)
+    q4 = torch.cat([torch.from_numpy(q), torch.ones(2 * qt, 1)], 1)
+    r4 = torch.cat([rt_, (-0.5 * (rt_ * rt_).sum(1))[:, None]], 1)
+    nr = r4.shape[0]
+    i0 = torch.from_numpy(rng.integers(0, nr, 2 * qt).astype(np.int32))
+    s0 = (q4[:, :3] * rt_[i0.long()]).sum(1) - 0.5 * (rt_[i0.long()] ** 2).sum(1)
+    # Query tile 0 lists tile 9 before tile 2, query tile 1 the reverse.
+    cand = torch.tensor([[5, 9, 0, 1, 2, 3, 4, 6, 7, 8, 10, 11],
+                         [2, 5, 0, 1, 3, 4, 6, 7, 9, 8, 10, 11]], dtype=torch.int32)
+    cnt = torch.tensor([12, 11], dtype=torch.int32)
+    rbb = K._tile_boxes(r4[:, :3], rt)
+    want_s, want_i = K.cand_plain(q4, r4, rbb, s0, i0, cand, cnt, 2 * qt, nr, rt)
+    got_s, got_i = K.cand_split_plain(q4, r4, rbb, s0, i0, cand, cnt, 2 * qt, nr, rt, splits)
+    torch.testing.assert_close(got_s, want_s, rtol=0, atol=0)
+    torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+    # The ties were exercised: winners in the duplicated tiles follow the table.
+    tile = want_i.long() // rt
+    assert bool((tile[:qt] != 2).all()) and bool((tile[qt:] != 9).all())
+    assert bool((tile[:qt] == 9).any()) and bool((tile[qt:] == 2).any())
+
+
+def test_table_entries_naming_no_valid_tile_are_skipped():
+    """``cand_plain`` skips table entries outside the ref tiles, as the
+    kernels do: a table holding such entries gives exactly what the table
+    without them gives."""
+    K = port_knn_mod
+    rng = np.random.default_rng(16)
+    rt, n_tiles = 64, 6
+    nr = n_tiles * rt - 10  # the last tile, 5, holds valid rows
+    r = torch.from_numpy(rng.uniform(-1, 1, (n_tiles * rt, 3)).astype(np.float32))
+    q = torch.from_numpy(rng.uniform(-1, 1, (K.QT, 3)).astype(np.float32))
+    q4 = torch.cat([q, torch.ones(K.QT, 1)], 1)
+    r4 = torch.cat([r, (-0.5 * (r * r).sum(1))[:, None]], 1)
+    r4[nr:, 3] = K.NEG
+    args = (q4, r4, K._tile_boxes(r, rt), None, None)
+    bad = torch.tensor([[0, 99, 3, -1, 6, 1]], dtype=torch.int32)  # 6: past the tiles too
+    good = torch.tensor([[0, 3, 1, 1, 1, 1]], dtype=torch.int32)
+    want_s, want_i = K.cand_plain(*args, good, torch.tensor([3], dtype=torch.int32),
+                                  K.QT, nr, rt)
+    got_s, got_i = K.cand_plain(*args, bad, torch.tensor([6], dtype=torch.int32),
+                                K.QT, nr, rt)
+    torch.testing.assert_close(got_s, want_s, rtol=0, atol=0)
+    torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+    # Only listed tiles win: entry 99 did not stand for the last tile.
+    assert set((want_i.long() // rt).tolist()) <= {0, 1, 3}
 
 
 def test_small_ref_sets_take_the_resident_kernel(small_tiles):
