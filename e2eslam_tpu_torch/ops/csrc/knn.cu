@@ -10,7 +10,7 @@
 //                          best first
 //   knn_resident_kernel <- _resident_pallas_call / _make_resident_kernel:
 //                          refs of at most 131,072 rows in sub-tiles, the
-//                          best sub-tile first, then a pruned sweep
+//                          best sub-tile first, then the others in order
 //
 // What they compute (all three): for each query q of a query tile, the
 // running maximum over visited refs r of the score
@@ -27,12 +27,19 @@
 // best distance (the largest |q|^2 - 2 s over the valid ones). Skipping it
 // never changes the result.
 //
-// ---- The walk kernels (dense and candidate) ------------------------------
-// Both walk a list of ref tiles -- the table's row for the candidate kernel,
-// the valid tiles newest first for the dense one -- with one scoring core.
-// What bounds them is instruction issue on the fp32 CUDA cores: per scored
-// (query, ref) pair three FMAs and a max. Refs are read once per visited
-// chunk per work item, from L2, so bytes are far below the time. The design:
+// ---- One core, three lists -----------------------------------------------
+// All three kernels walk a list of ref tiles per query tile with one
+// scoring core: the table's row for the candidate kernel, the valid tiles
+// newest first for the dense one, and for the resident kernel the valid
+// sub-tiles with the one of least box gap to the query tile first (the
+// lowest index on ties; the box spans all 256 rows of the query tile,
+// padding included, as in Pallas), then the others ascending. The resident
+// list is derived in the kernel, one warp reduction per work item, so the
+// host builds no table for it. What bounds the core is instruction issue on
+// the fp32 CUDA cores: per scored (query, ref) pair three FMAs and a max.
+// Refs are read once per visited chunk per work item, from L2 (the resident
+// kernel's at most 2 MB of refs stay there across the call), so bytes are
+// far below the time. The design:
 //   * Several queries per thread (QPT) in registers: each shared-memory read
 //     of a ref row (a broadcast float4) feeds QPT scores.
 //   * Max first, index later: the scan keeps only running maxima, two per
@@ -47,26 +54,34 @@
 //     and worst-best distance, walking a share of its query tile's list. It
 //     stages and scores only the chunks its bound admits, with no block
 //     barrier, so a far outlier query keeps its own group sweeping, not the
-//     whole tile.
+//     whole tile. The resident kernel is given one box per chunk (a
+//     sub-tile's box is their union, exactly): a chunk of the map's newest
+//     appends is a few image rows, far tighter than a sub-tile's strip
+//     across the frame.
 //   * Asynchronous staging: chunks of CHUNK rows go to the warp's shared
-//     memory with cp.async into two buffers, so the next chunk (the same
-//     tile's next one, or the first of the next admitted tile) loads while
-//     this one is scored.
+//     memory with cp.async into two buffers, so the next admitted chunk
+//     (this tile's, or the first of the next admitted tile) loads while this
+//     one is scored.
 //   * Balance across the card: a query group's list is split into shares
-//     of at least SPLIT_MIN entries (ops/knn.py), at most MAX_SPLITS, list
-//     positions interleaved (share s walks positions s, s + splits, ...), so
-//     each share starts at its best tiles. The shares are counted in the
-//     kernel, so nothing is sized on the host: persistent one-warp blocks,
-//     as many as fit on the SMs, take work items from one atomic counter,
-//     query tiles in the order the wrapper gives (longest list first), a
-//     group's shares side by side. A long list therefore neither sets the
-//     kernel's time alone nor starts last.
+//     of at least split_min entries, at most max_splits (ops/knn.py sets
+//     both per kernel), list positions interleaved (share s walks positions
+//     s, s + splits, ...), so each share starts at its best tiles. A share
+//     of the resident list walks position 0 first, then positions 1 + s,
+//     1 + s + splits, ...: a cold call's bound is infinite until a real row
+//     is scored, and the best sub-tile makes it tight in every share. The
+//     shares are counted in the kernel, so nothing is sized on the host:
+//     persistent one-warp blocks, as many as fit on the SMs, take work items
+//     from one atomic counter, query tiles in the order the wrapper gives
+//     (longest list first), a group's shares side by side. A long list
+//     therefore neither sets the kernel's time alone nor starts last.
 //   * Exact merge: every share folds its (score, rank) into one 64-bit
 //     atomic maximum per query -- the score, then the lower rank, where the
 //     seed is rank 0 and row r of list position p is (p + 1) * rt + r --
 //     and the group's last share to finish unpacks it. Within a share the
 //     winner is the lowest (position, row) of its maximum, so the merge
-//     reproduces the sequential walk exactly: cand_plain stays the oracle.
+//     reproduces the sequential walk exactly (a position that several
+//     shares walk gives each the same pair, and the maximum is idempotent):
+//     cand_plain and resident_plain stay the oracles.
 // Tensor cores: a single TF32 pass would corrupt the argmax
 // (e2eslam_tpu/ops/knn.py:251-258). The choice is CUDA cores. The scan
 // issues about 4.7 instructions per pair (three FFMA, one FMNMX, half an
@@ -80,27 +95,41 @@
 // scores that no longer match the plain version's rounding row by row.
 // QPT = 4 measured slower (coarser per-warp pruning, 64-register cap).
 //
-// ---- The resident kernel (not redesigned) --------------------------------
-// One block per 256-query tile, one query per thread; sub-tiles are staged
-// 2048 rows at a time (32 KB) synchronously and read as broadcasts; the
-// tile's box and worst-best distance come from block reductions, so its
-// pruning is block-uniform. Its 2 MB of refs exceed the 227 KB a block may
-// hold; it streams its sub-tiles from L2, where they stay across blocks.
+// ---- The resident kernel on this core -------------------------------------
+// It replaced a block-per-query-tile kernel that reached about 21% of its
+// bound (2.12 ms at the main path's 81,920 x 65,536 tail-seed call, H100
+// 80GB HBM3, 700 W). Its four causes, and what the core does about each:
+//   * one query a thread, the index tracked on every pair (three FMAs, a
+//     compare, two selects and one shared-memory read a pair): two queries
+//     a thread, maxima per group, a one-group rescan;
+//   * pruning uniform over a 256-query block, so one far query kept eight
+//     warps sweeping: per-warp boxes and bounds over 64 queries, tested
+//     before each 256-row chunk against that chunk's own box (a few image
+//     rows of the map's newest appends, not a strip across the frame);
+//   * synchronous 2048-row staging between block barriers: cp.async into
+//     two buffers, no block barrier;
+//   * a ragged grid of 320 blocks on 132 SMs: persistent one-warp blocks on
+//     the work queue, each query group's list split in up to RES_MAX_SPLITS
+//     shares (ops/knn.py), every share walking the best sub-tile first so a
+//     cold call's bound is tight in each.
+// Pruning makes the work per query group uneven (the heaviest work item
+// scores about twice the mean), and every extra share scores the best
+// sub-tile again: work the kernel does beyond what the search needs, which
+// the visit record counts apart (PERF.md has the measured pairs, times and
+// bound).
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#define STAGE_ROWS 2048
-#define MAX_WARPS 32
-#define MAX_SUBTILES 1024
 #define NEG_BIAS (-1e30f)
 
-#define QPT 2            // queries per thread in the walk kernels
+#define QPT 2            // queries per thread
 #define CHUNK 256        // ref rows per staged chunk (4 KB)
 #define GROUP 16         // rows per running maximum before it meets the best
 #define FULL 0xffffffffu
+
+enum ListKind { kDense, kCand, kResident };
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
@@ -127,10 +156,6 @@ __device__ __forceinline__ float gap2(const float* lo, const float* hi,
   return lb2;
 }
 
-// ---------------------------------------------------------------------------
-// the walk kernels
-// ---------------------------------------------------------------------------
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -146,49 +171,137 @@ __device__ __forceinline__ void cp_async_wait() {
 struct WalkArgs {
   const float4* q4;
   const float4* r4;
-  const float* rbb;
+  const float* rbb;  // ref boxes [nrt, 8]; resident: one per chunk [nrt * rt / ch, 8]
   const float* s0;
   const int* i0;
-  const int* cand;   // [n_qt, mc] (candidate kernel) or null (dense)
-  const int* cnt;    // [n_qt] (candidate kernel) or null (dense)
+  const int* cand;   // [n_qt, mc] (candidate kernel) or null
+  const int* cnt;    // [n_qt] (candidate kernel) or null
   const int* order;  // query tiles, longest list first (null: in order)
   int mc, qt, nq, nr, nrt, rt, n_groups, split_min, max_splits;
   float* out_s;
   int* out_i;
   unsigned long long* merged;  // [nq_pad] zeros: packed (score, rank) maxima
   int* work;  // [n_groups + 1] zeros: per group the shares done, then the queue
-  long long* visits;  // [n_groups * max_splits, 2]: per item rows staged, pairs scored
+  long long* visits;  // [n_groups * max_splits, 3]: per item rows staged, pairs
+                      // scored, and of those the pairs another share also scores
 };
 
-// The length of query tile qtile's list.
-template <bool kCand>
+// A query tile's list: its length and, for the resident list, its first
+// sub-tile.
+struct List {
+  int qtile, n, first;
+};
+
+template <int K>
 __device__ __forceinline__ int list_len(const WalkArgs& A, int qtile) {
-  return kCand ? min(A.cnt[qtile], A.mc) : min((A.nr + A.rt - 1) / A.rt, A.nrt);
+  return K == kCand ? min(A.cnt[qtile], A.mc) : min((A.nr + A.rt - 1) / A.rt, A.nrt);
 }
 
-// The ref tile at list position p of query tile qtile (-1: none).
-template <bool kCand>
-__device__ __forceinline__ int tile_at(const WalkArgs& A, int qtile, int n_list, int p) {
-  const int t = kCand ? A.cand[(size_t)qtile * A.mc + p] : n_list - 1 - p;
+// The ref tile at list position p (-1: none).
+template <int K>
+__device__ __forceinline__ int tile_at(const WalkArgs& A, const List& L, int p) {
+  int t;
+  if (K == kCand)
+    t = A.cand[(size_t)L.qtile * A.mc + p];
+  else if (K == kDense)
+    t = L.n - 1 - p;
+  else  // the first sub-tile, then the others ascending
+    t = p == 0 ? L.first : p - 1 + (p - 1 >= L.first);
   return (t >= 0 && t < A.nrt && t * A.rt < A.nr) ? t : -1;
 }
 
-// The first entry k >= k0 (list position split + k * splits) whose tile the
-// warp's bound admits (nk: none), tested 32 entries at a time.
-template <bool kCand>
-__device__ int next_needed(const WalkArgs& A, int qtile, int n_list, int split, int splits,
-                           int nk, int k0, const float* lo, const float* hi, float wb) {
+// The list position of a share's k-th entry, and the share's entry count.
+template <int K>
+__device__ __forceinline__ int position(int k, int split, int splits) {
+  if (K == kResident) return k == 0 ? 0 : 1 + split + (k - 1) * splits;
+  return split + k * splits;
+}
+template <int K>
+__device__ __forceinline__ int n_entries(int n, int split, int splits) {
+  if (K == kResident)
+    return n == 0 ? 0 : 1 + (n - 1 > split ? (n - 1 - split + splits - 1) / splits : 0);
+  return n > split ? (n - split + splits - 1) / splits : 0;
+}
+
+// Whether the bound admits ref tile t, and its chunk c (of n_ch): the
+// resident kernel has one box per chunk, the others one per tile.
+template <int K>
+__device__ __forceinline__ bool chunk_admitted(const WalkArgs& A, int t, int c, int n_ch,
+                                               const float* lo, const float* hi, float wb) {
+  return gap2(lo, hi, A.rbb + 8 * (K == kResident ? t * n_ch + c : t)) < wb;
+}
+template <int K>
+__device__ __forceinline__ bool tile_admitted(const WalkArgs& A, int t, int n_ch,
+                                              const float* lo, const float* hi, float wb) {
+  for (int c = 0; c < (K == kResident ? n_ch : 1); ++c)
+    if (chunk_admitted<K>(A, t, c, n_ch, lo, hi, wb)) return true;
+  return false;
+}
+
+// The first chunk c >= c0 of ref tile t the bound admits (n_ch: none).
+template <int K>
+__device__ int next_chunk(const WalkArgs& A, int t, int c0, int n_ch, const float* lo,
+                          const float* hi, float wb) {
+  if (K != kResident)
+    return c0 < n_ch && chunk_admitted<K>(A, t, c0, n_ch, lo, hi, wb) ? c0 : n_ch;
+  for (int c = c0; c < n_ch; ++c)
+    if (chunk_admitted<K>(A, t, c, n_ch, lo, hi, wb)) return c;
+  return n_ch;
+}
+
+// The first entry k >= k0 of the share whose tile the warp's bound admits
+// (nk: none), tested 32 entries at a time.
+template <int K>
+__device__ int next_needed(const WalkArgs& A, const List& L, int split, int splits, int nk,
+                           int k0, int n_ch, const float* lo, const float* hi, float wb) {
   for (int base = k0; base < nk; base += 32) {
     const int k = base + threadIdx.x;
     bool need = false;
     if (k < nk) {
-      const int t = tile_at<kCand>(A, qtile, n_list, split + k * splits);
-      need = t >= 0 && gap2(lo, hi, A.rbb + 8 * t) < wb;
+      const int t = tile_at<K>(A, L, position<K>(k, split, splits));
+      need = t >= 0 && tile_admitted<K>(A, t, n_ch, lo, hi, wb);
     }
     const unsigned bal = __ballot_sync(FULL, need);
     if (bal) return base + __ffs(bal) - 1;
   }
   return nk;
+}
+
+// The resident list's first sub-tile: the least squared gap between the
+// query tile's box (all qt rows, padding included) and a valid sub-tile's
+// box (the union of its chunks' boxes), the lowest index on ties. Products
+// and sums are rounded apart (no FMA), as Pallas and the plain version
+// round them.
+__device__ int first_subtile(const WalkArgs& A, int qtile, int n) {
+  float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+  for (int r = threadIdx.x; r < A.qt; r += 32) {
+    const float4 q = A.q4[(size_t)qtile * A.qt + r];
+    lo[0] = fminf(lo[0], q.x), lo[1] = fminf(lo[1], q.y), lo[2] = fminf(lo[2], q.z);
+    hi[0] = fmaxf(hi[0], q.x), hi[1] = fmaxf(hi[1], q.y), hi[2] = fmaxf(hi[2], q.z);
+  }
+  for (int a = 0; a < 3; ++a) lo[a] = warp_min(lo[a]), hi[a] = warp_max(hi[a]);
+  float best = INFINITY;
+  int arg = 0;
+  for (int s = threadIdx.x; s < n; s += 32) {
+    const int nb = A.rt / min(CHUNK, A.rt);
+    const float* bb = A.rbb + 8 * s * nb;
+    float blo[3] = {bb[0], bb[1], bb[2]}, bhi[3] = {bb[3], bb[4], bb[5]};
+    for (int b = 1; b < nb; ++b)
+      for (int a = 0; a < 3; ++a)
+        blo[a] = fminf(blo[a], bb[8 * b + a]), bhi[a] = fmaxf(bhi[a], bb[8 * b + 3 + a]);
+    float lb = 0.0f;
+    for (int a = 0; a < 3; ++a) {
+      const float gap = fmaxf(fmaxf(lo[a] - bhi[a], blo[a] - hi[a]), 0.0f);
+      lb = __fadd_rn(lb, __fmul_rn(gap, gap));
+    }
+    if (lb < best) best = lb, arg = s;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(FULL, best, o);
+    const int oa = __shfl_xor_sync(FULL, arg, o);
+    if (ob < best || (ob == best && oa < arg)) best = ob, arg = oa;
+  }
+  return arg;
 }
 
 __device__ __forceinline__ void stage_chunk(const WalkArgs& A, float4* dst, int t, int c,
@@ -208,13 +321,12 @@ __device__ __forceinline__ unsigned long long pack(float s, unsigned rank) {
 }
 
 // One work item: the query group `group` (32 * QPT queries of a query
-// tile, one warp) walks list positions split, split + splits, ...
-template <bool kCand>
-__device__ void walk_item(const WalkArgs& A, float4 (*stage)[CHUNK], int item, int qtile,
+// tile, one warp) walks its share `split` of `splits` of the tile's list.
+template <int K>
+__device__ void walk_item(const WalkArgs& A, float4 (*stage)[CHUNK], int item, const List& L,
                           int group, int split, int splits) {
   const int lane = threadIdx.x;
   const int row0 = group * 32 * QPT + lane;
-  const int n_list = list_len<kCand>(A, qtile);
 
   // The thread's queries (rows row0 + 32 i), their seeds and the warp's box.
   float qx[QPT], qy[QPT], qz[QPT], q2[QPT], best[QPT];
@@ -245,32 +357,41 @@ __device__ void walk_item(const WalkArgs& A, float4 (*stage)[CHUNK], int item, i
   };
   float wb = worst_best();
 
-  const int nk = n_list > split ? (n_list - split + splits - 1) / splits : 0;
+  const int nk = n_entries<K>(L.n, split, splits);
   const int ch = min(CHUNK, A.rt), n_ch = A.rt / ch;
-  long long staged = 0, pairs = 0;
-  int k = next_needed<kCand>(A, qtile, n_list, split, splits, nk, 0, lo, hi, wb);
-  int t = k < nk ? tile_at<kCand>(A, qtile, n_list, split + k * splits) : -1, c = 0, buf = 0;
-  if (k < nk) stage_chunk(A, stage[buf], t, c, ch), staged += ch;
-  while (k < nk) {
-    // Choose and start the next chunk: this tile's next one while the bound
-    // still admits the tile, else the first chunk of the next admitted tile.
-    int k2 = k, c2 = c + 1, t2 = t;
-    if (c2 == n_ch || !(gap2(lo, hi, A.rbb + 8 * t) < wb)) {
-      k2 = next_needed<kCand>(A, qtile, n_list, split, splits, nk, k + 1, lo, hi, wb);
-      c2 = 0;
-      t2 = k2 < nk ? tile_at<kCand>(A, qtile, n_list, split + k2 * splits) : -1;
+  auto tile_of = [&](int k) { return tile_at<K>(A, L, position<K>(k, split, splits)); };
+  // From chunk c of entry k's tile t on, the first chunk the bound admits:
+  // this tile's, else the first of the next admitted tile (k = nk: none).
+  auto next_visit = [&](int& k, int& t, int& c) {
+    c = k < nk ? next_chunk<K>(A, t, c, n_ch, lo, hi, wb) : 0;
+    while (k < nk && c == n_ch) {
+      k = next_needed<K>(A, L, split, splits, nk, k + 1, n_ch, lo, hi, wb);
+      t = k < nk ? tile_of(k) : -1;
+      c = k < nk ? next_chunk<K>(A, t, 0, n_ch, lo, hi, wb) : 0;
     }
+  };
+  // Chunks staged, scored, and scored again (32-bit counts: the kernel is
+  // at its register cap).
+  int staged = 0, scored = 0, repeated = 0;
+  int k = next_needed<K>(A, L, split, splits, nk, 0, n_ch, lo, hi, wb);
+  int t = k < nk ? tile_of(k) : -1, c = 0, buf = 0;
+  next_visit(k, t, c);
+  if (k < nk) stage_chunk(A, stage[buf], t, c, ch), ++staged;
+  while (k < nk) {
+    // Choose and start the next chunk.
+    int k2 = k, t2 = t, c2 = c + 1;
+    next_visit(k2, t2, c2);
     const bool more = k2 < nk;
     if (more) {
-      stage_chunk(A, stage[buf ^ 1], t2, c2, ch), staged += ch;
+      stage_chunk(A, stage[buf ^ 1], t2, c2, ch), ++staged;
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncwarp();
 
-    // Score the chunk if the bound still admits its tile.
-    if (gap2(lo, hi, A.rbb + 8 * t) < wb) {
+    // Score the chunk if the bound still admits it.
+    if (chunk_admitted<K>(A, t, c, n_ch, lo, hi, wb)) {
       const float4* st = stage[buf];
       int grp[QPT];  // the group of a query's new best in this chunk (-1: none)
 #pragma unroll
@@ -307,19 +428,26 @@ __device__ void walk_item(const WalkArgs& A, float4 (*stage)[CHUNK], int item, i
 #pragma unroll 1
           for (int r = grp[i]; r < grp[i] + GROUP; ++r)
             if (score(qx[i], qy[i], qz[i], st[r]) == best[i]) {
-              idx[i] = base + r, pos[i] = split + k * splits;
+              idx[i] = base + r, pos[i] = position<K>(k, split, splits);
               break;
             }
         }
         wb = worst_best();
       }
-      pairs += (long long)ch * 32 * QPT;
+      ++scored;
+      // Every share of a resident list walks position 0, so the shares past
+      // the first score its pairs again.
+      repeated += K == kResident && k == 0 && split > 0;
     }
     __syncwarp();  // the buffer is read before it is staged again
     k = k2, c = c2, t = t2, buf ^= 1;
   }
 
-  if (A.visits && lane == 0) A.visits[2 * item] = staged, A.visits[2 * item + 1] = pairs;
+  if (A.visits && lane == 0) {
+    const long long per_chunk = (long long)ch * 32 * QPT;
+    A.visits[3 * item] = (long long)staged * ch, A.visits[3 * item + 1] = scored * per_chunk;
+    A.visits[3 * item + 2] = repeated * per_chunk;
+  }
   if (splits == 1) {
 #pragma unroll
     for (int i = 0; i < QPT; ++i) A.out_s[row0 + 32 * i] = best[i], A.out_i[row0 + 32 * i] = idx[i];
@@ -348,7 +476,7 @@ __device__ void walk_item(const WalkArgs& A, float4 (*stage)[CHUNK], int item, i
       A.out_i[row] = A.i0 ? A.i0[row] : 0;
     } else {
       const int p = rank / A.rt - 1;
-      A.out_i[row] = tile_at<kCand>(A, qtile, n_list, p) * A.rt + rank % A.rt;
+      A.out_i[row] = tile_at<K>(A, L, p) * A.rt + rank % A.rt;
     }
   }
 }
@@ -359,7 +487,7 @@ __device__ void walk_item(const WalkArgs& A, float4 (*stage)[CHUNK], int item, i
 // groups side by side). A share past its group's count is skipped. So the
 // heaviest work starts first, the rest fills in, and nothing is sized on
 // the host.
-template <bool kCand>
+template <int K>
 __device__ void walk(const WalkArgs& A) {
   __shared__ float4 stage[2][CHUNK];
   const int gpt = A.qt / (32 * QPT), items = A.n_groups * A.max_splits;
@@ -370,166 +498,46 @@ __device__ void walk(const WalkArgs& A) {
     if (item >= items) return;
     const int g = item / A.max_splits, share = item % A.max_splits;
     const int qtile = A.order ? A.order[g / gpt] : g / gpt;
-    const int splits = min(A.max_splits, max(1, (list_len<kCand>(A, qtile) + A.split_min - 1) /
-                                                    A.split_min));
-    if (share < splits)
-      walk_item<kCand>(A, stage, item, qtile, qtile * gpt + g % gpt, share, splits);
+    List L{qtile, list_len<K>(A, qtile), 0};
+    const int splits = min(A.max_splits, max(1, (L.n + A.split_min - 1) / A.split_min));
+    if (share >= splits) continue;
+    if (K == kResident) L.first = first_subtile(A, qtile, L.n);
+    walk_item<K>(A, stage, item, L, qtile * gpt + g % gpt, share, splits);
   }
 }
 
 // Dense: every valid ref tile, newest first (a sequential map's best
 // matches live in its latest appends, which then set a tight bound early).
-__global__ void __launch_bounds__(32, 32) knn_dense_kernel(WalkArgs A) { walk<false>(A); }
+__global__ void __launch_bounds__(32, 32) knn_dense_kernel(WalkArgs A) { walk<kDense>(A); }
 
 // Candidate table: only the ref tiles listed for this query tile, in table
 // order (best first); entries past cnt are not visited.
-__global__ void __launch_bounds__(32, 32) knn_cand_kernel(WalkArgs A) { walk<true>(A); }
+__global__ void __launch_bounds__(32, 32) knn_cand_kernel(WalkArgs A) { walk<kCand>(A); }
 
-// ---------------------------------------------------------------------------
-// the resident kernel
-// ---------------------------------------------------------------------------
-
-// Block-wide max / min; every thread receives the same value.
-static __device__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by a previous reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nw = blockDim.x >> 5;
-  return warp_max(lane < nw ? red[lane] : -INFINITY);
-}
-
-static __device__ float block_min(float v, float* red) {
-  v = warp_min(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nw = blockDim.x >> 5;
-  return warp_min(lane < nw ? red[lane] : INFINITY);
-}
-
-// Per-block query state.
-struct Query {
-  float4 q;     // [qx, qy, qz, 1]
-  float q2;     // |q|^2, as the Pallas kernel recovers it: sum(q4*q4) - 1
-  bool valid;   // row < nq
-  float best;   // running best score
-  int idx;      // its ref index
-  float lo[3], hi[3];  // the query tile's bounding box (uniform)
-};
-
-static __device__ void init_query(Query& Q, const float4* __restrict__ q4,
-                           const float* __restrict__ s0, const int* __restrict__ i0,
-                           int nq, float* red) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  Q.q = q4[row];
-  Q.q2 = Q.q.x * Q.q.x + Q.q.y * Q.q.y + Q.q.z * Q.q.z + Q.q.w * Q.q.w - 1.0f;
-  Q.valid = row < nq;
-  Q.best = s0 ? s0[row] : NEG_BIAS;
-  Q.idx = i0 ? i0[row] : 0;
-  // Every row of the tile (padding included) widens the box, as in Pallas.
-  const float c[3] = {Q.q.x, Q.q.y, Q.q.z};
-  for (int a = 0; a < 3; ++a) {
-    Q.lo[a] = block_min(c[a], red);
-    Q.hi[a] = block_max(c[a], red);
-  }
-}
-
-// The tile's worst best squared distance over its valid queries.
-__device__ __forceinline__ float worst_best(const Query& Q, float* red) {
-  return block_max(Q.valid ? Q.q2 - 2.0f * Q.best : -INFINITY, red);
-}
-
-// Score rows [first, first + n) of r4 against the block's queries.
-static __device__ void visit_rows(Query& Q, const float4* __restrict__ r4, int first, int n,
-                           float4* stage) {
-  for (int c = 0; c < n; c += STAGE_ROWS) {
-    const int m = min(STAGE_ROWS, n - c);
-    __syncthreads();  // the previous stage is no longer read
-    for (int k = threadIdx.x; k < m; k += blockDim.x) stage[k] = r4[first + c + k];
-    __syncthreads();
-    float best = Q.best;
-    int idx = Q.idx;
-    const int base = first + c;
-#pragma unroll 4
-    for (int k = 0; k < m; ++k) {
-      const float4 r = stage[k];
-      const float s = fmaf(Q.q.x, r.x, fmaf(Q.q.y, r.y, fmaf(Q.q.z, r.z, r.w)));
-      if (s > best) {
-        best = s;
-        idx = base + k;
-      }
-    }
-    Q.best = best;
-    Q.idx = idx;
-  }
-}
-
-// Resident: S sub-tiles of st rows; pass 0 bounds every sub-tile, the
-// best one is visited first, then the pruned sweep covers the rest.
-__global__ void knn_resident_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
-                                    const float* __restrict__ rbb, const float* __restrict__ s0,
-                                    const int* __restrict__ i0, int nq, int nr, int S, int st,
-                                    float* __restrict__ out_s, int* __restrict__ out_i,
-                                    int* __restrict__ visits) {
-  extern __shared__ float4 stage[];
-  __shared__ float red[MAX_WARPS];
-  __shared__ float lbs[MAX_SUBTILES];
-  __shared__ int first_s;
-  Query Q;
-  init_query(Q, q4, s0, i0, nq, red);
-  float wb = s0 ? worst_best(Q, red) : INFINITY;
-  for (int s = threadIdx.x; s < S; s += blockDim.x)
-    lbs[s] = (s * st < nr) ? gap2(Q.lo, Q.hi, rbb + 8 * s) : INFINITY;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float best_lb = INFINITY;
-    int best_s = 0;
-    for (int s = 0; s < S; ++s)
-      if (lbs[s] < best_lb) {
-        best_lb = lbs[s];
-        best_s = s;
-      }
-    first_s = best_s;
-  }
-  __syncthreads();
-  const int sf = first_s;
-  int visited = 0;
-  if (blockIdx.x * blockDim.x < nq) {
-    if (lbs[sf] < wb) {
-      visit_rows(Q, r4, sf * st, st, stage);
-      visited += st;
-      wb = worst_best(Q, red);
-    }
-    for (int s = 0; s < S; ++s) {
-      if (s == sf || !(lbs[s] < wb)) continue;
-      visit_rows(Q, r4, s * st, st, stage);
-      visited += st;
-      wb = worst_best(Q, red);
-    }
-  }
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  out_s[row] = Q.best;
-  out_i[row] = Q.idx;
-  if (visits && threadIdx.x == 0) visits[blockIdx.x] = visited;
+// Resident: the valid sub-tiles, the query tile's best one first, then the
+// others ascending.
+__global__ void __launch_bounds__(32, 32) knn_resident_kernel(WalkArgs A) {
+  walk<kResident>(A);
 }
 
 // ---------------------------------------------------------------------------
 // plain C entry points, loaded with ctypes
 // ---------------------------------------------------------------------------
 // Each launches on the given stream, allocates nothing and returns
-// cudaGetLastError() (0 = launched). knn_walk_config gives the walk
-// kernels' compile-time shape (QPT, CHUNK, GROUP), from which the caller
-// sizes its buffers. A walk launch starts persistent one-warp blocks, as
-// many as fit on the SMs, over n_groups * max_splits work items, where
-// n_groups = n_qt * qt / (32 * QPT). It needs qt a multiple of 32 * QPT
-// and rt a multiple of min(CHUNK, rt) and of GROUP (else
-// cudaErrorInvalidValue, nothing launched); `merged` [n_qt * qt] and
-// `work` [n_groups + 1] are zero-filled (int64 and int32 scratch: the
+// cudaGetLastError() (0 = launched). knn_walk_config gives the kernels'
+// compile-time shape (QPT, CHUNK, GROUP), from which the caller sizes its
+// buffers. A launch starts persistent one-warp blocks, as many as fit on
+// the SMs, over n_groups * max_splits work items, where
+// n_groups = n_qt * qt / (32 * QPT). It needs qt a multiple of 32 * QPT,
+// rt a multiple of min(CHUNK, rt) and of GROUP, and (nrt + 1) * rt below
+// 2^32 (else cudaErrorInvalidValue, nothing launched); `merged` [n_qt * qt]
+// and `work` [n_groups + 1] are zero-filled (int64 and int32 scratch: the
 // packed maxima of split groups, then per group its finished shares and,
-// last, the queue head); `visits` is null or int64 [n_groups * max_splits, 2].
+// last, the queue head); `visits` is null or int64 [n_groups * max_splits,
+// 3], per work item the ref rows it staged, the pairs it scored, and of
+// those the pairs another share of its list scores too (the resident
+// list's position 0 in every share past the first; 0 in the other kernels).
+// The pairs a call needs are the second column's sum less the third's.
 
 extern "C" int knn_walk_config(int* out) {
   out[0] = QPT, out[1] = CHUNK, out[2] = GROUP;
@@ -537,13 +545,16 @@ extern "C" int knn_walk_config(int* out) {
 }
 
 // Enough persistent one-warp blocks to fill every SM (at most `items`).
-template <bool kCand>
-static int walk_launch(const WalkArgs& A, int items, void* stream) {
-  if (A.qt % (32 * QPT) || A.rt % GROUP || A.rt % min(CHUNK, A.rt))
+template <int K>
+static int walk_launch(const WalkArgs& A, void* stream) {
+  const int ch = min(CHUNK, A.rt);
+  if (A.qt % (32 * QPT) || A.rt % GROUP || A.rt % ch ||
+      (long long)(A.nrt + 1) * A.rt >= 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
+  auto kernel = K == kDense ? knn_dense_kernel : K == kCand ? knn_cand_kernel
+                                                            : knn_resident_kernel;
   static int per_sm = -1, n_sm = 0;
   if (per_sm < 0) {
-    auto kernel = kCand ? knn_cand_kernel : knn_dense_kernel;
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -553,11 +564,8 @@ static int walk_launch(const WalkArgs& A, int items, void* stream) {
     if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32, 0);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = max(1, min(items, per_sm * n_sm));
-  if (kCand)
-    knn_cand_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(A);
-  else
-    knn_dense_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(A);
+  const int grid = max(1, min(A.n_groups * A.max_splits, per_sm * n_sm));
+  kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
 
@@ -571,7 +579,7 @@ extern "C" int knn_dense_launch(const void* q4, const void* r4, const void* rbb,
                    nr, nrt, rt, n_qt * (qt / (32 * QPT)), split_min, max_splits,
                    (float*)out_s, (int*)out_i, (unsigned long long*)merged, (int*)work,
                    (long long*)visits};
-  return walk_launch<false>(A, A.n_groups * max_splits, stream);
+  return walk_launch<kDense>(A, stream);
 }
 
 extern "C" int knn_cand_launch(const void* q4, const void* r4, const void* rbb,
@@ -585,15 +593,19 @@ extern "C" int knn_cand_launch(const void* q4, const void* r4, const void* rbb,
                    (const int*)order, mc, qt, nq, nr, nrt, rt, n_qt * (qt / (32 * QPT)),
                    split_min, max_splits, (float*)out_s, (int*)out_i,
                    (unsigned long long*)merged, (int*)work, (long long*)visits};
-  return walk_launch<true>(A, A.n_groups * max_splits, stream);
+  return walk_launch<kCand>(A, stream);
 }
 
+// `rbb` holds one box per chunk of min(CHUNK, rt) rows of the sub-tiles.
 extern "C" int knn_resident_launch(const void* q4, const void* r4, const void* rbb,
-                                   const void* s0, const void* i0, int n_qt, int qt,
-                                   int nq, int nr, int S, int st, void* out_s, void* out_i,
+                                   const void* s0, const void* i0, int n_qt, int qt, int nq,
+                                   int nr, int nrt, int rt, int split_min, int max_splits,
+                                   void* out_s, void* out_i, void* merged, void* work,
                                    void* visits, void* stream) {
-  knn_resident_kernel<<<n_qt, qt, STAGE_ROWS * sizeof(float4), (cudaStream_t)stream>>>(
-      (const float4*)q4, (const float4*)r4, (const float*)rbb, (const float*)s0,
-      (const int*)i0, nq, nr, S, st, (float*)out_s, (int*)out_i, (int*)visits);
-  return (int)cudaGetLastError();
+  const WalkArgs A{(const float4*)q4, (const float4*)r4, (const float*)rbb,
+                   (const float*)s0, (const int*)i0, nullptr, nullptr, nullptr, 0, qt, nq,
+                   nr, nrt, rt, n_qt * (qt / (32 * QPT)), split_min, max_splits,
+                   (float*)out_s, (int*)out_i, (unsigned long long*)merged, (int*)work,
+                   (long long*)visits};
+  return walk_launch<kResident>(A, stream);
 }

@@ -15,7 +15,8 @@ kernel wrappers do the search itself:
 
   * ``dense_kernel``    every valid ref tile, newest first;
   * ``cand_kernel``     the ref tiles a per-query-tile table lists;
-  * ``resident_kernel`` refs of at most ``RES_MAX_ROWS`` rows in sub-tiles.
+  * ``resident_kernel`` refs of at most ``RES_MAX_ROWS`` rows in sub-tiles,
+    each query tile's best sub-tile first, then the others in order.
 
 A wrapper launches its CUDA kernel (``ops/csrc/knn.cu``) for CUDA tensors
 and runs its plain PyTorch version for CPU tensors; on a CUDA tensor it
@@ -23,8 +24,10 @@ launches or raises, it never falls back. Each wrapper counts its launches
 in a plain integer attribute, ``launches``. The plain versions take the
 same arguments and compute the same function; they visit tiles in the
 kernels' order but do not prune (pruning never changes the result). The
-dense and candidate kernels split a long tile list over several blocks and
-merge the splits; ``cand_split_plain`` is the plain version of that rule.
+three kernels share one core that walks a list of tiles per query tile;
+they split a long list over several work items and merge the shares:
+``cand_split_plain`` and ``resident_split_plain`` are the plain versions
+of that rule, and ``resident_table`` writes the resident order as a list.
 
 The tile constants are module attributes so that tests can shrink them.
 """
@@ -40,16 +43,19 @@ from e2eslam_tpu_torch.ops.spatial_sort import morton_codes
 
 Tensor = torch.Tensor
 
-QT = 256  # query tile: a table row, a resident-kernel block, a few warps in the others
+QT = 256  # query tile: a table row, the rows whose box picks a resident list's first sub-tile
 RT = 2048  # dense ref tile
 RT_CAND = 2048  # candidate-table ref tile
 MAX_TABLE_TILES = 2048  # most query tiles a warm call takes the candidate table for
 RES_MAX_ROWS = 1 << 17  # largest ref set the resident kernel takes
 ST = 2048  # resident sub-tile
 NEG = -1e30  # bias of invalid refs
-_MAX_SUBTILES = 1024  # resident sub-tiles a CUDA block can bound (knn.cu)
 SPLIT_MIN = 2  # list entries per work item of the dense and candidate kernels, at least
 MAX_SPLITS = 32  # work items a query group's list is split into, at most
+# The same two for the resident kernel (RES_MAX_SPLITS <= MAX_SPLITS): every
+# share of its list also walks the best sub-tile, so it splits less.
+RES_SPLIT_MIN = 8
+RES_MAX_SPLITS = 4
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -119,6 +125,12 @@ def cand_split_plain(q4, r4, rbb, s0, i0, cand, cnt, nq, nr, rt, splits: int):
         n = ((cnt - s).clamp(min=0) + splits - 1) // splits
         sc, ix, p = _table_walk(q4, r4, s0, i0, cand[:, s::splits].contiguous(), n, nr, rt)
         parts.append((sc, ix, torch.where(p >= 0, s + p * splits, p)))
+    return _merge(parts)
+
+
+def _merge(parts):
+    """Merge the shares' (score, index, list position) results: the higher
+    score, then the lower position (the seed is position -1)."""
     best_s, best_i, best_p = parts[0]
     for sc, ix, p in parts[1:]:
         take = (sc > best_s) | ((sc == best_s) & (p < best_p))
@@ -141,11 +153,19 @@ def _box_gap2(qbb: Tensor, rbb: Tensor) -> Tensor:
     return (gap * gap).sum(dim=-1)
 
 
+def _subtile_boxes(rbb: Tensor, S: int) -> Tensor:
+    """The boxes ``[S, 6]`` of S sub-tiles, from ``rbb`` holding one box per
+    sub-tile or several (the sub-tile's box is their union, exactly)."""
+    b = rbb.reshape(S, -1, rbb.shape[-1])
+    return torch.cat([b[:, :, 0:3].amin(dim=1), b[:, :, 3:6].amax(dim=1)], dim=1)
+
+
 def resident_plain(q4, r4, rbb, s0, i0, nq, nr, st):
-    """Each query tile visits its best sub-tile (least box gap) first, then
-    the others in order."""
+    """Each query tile visits its best sub-tile (least box gap, the lowest
+    index on ties) first, then the others in order. ``rbb`` holds one box
+    per sub-tile of ``st`` rows, or one per equal part of a sub-tile."""
     S = r4.shape[0] // st
-    lb = _box_gap2(_tile_boxes(q4, QT), rbb)
+    lb = _box_gap2(_tile_boxes(q4, QT), _subtile_boxes(rbb, S))
     valid_s = torch.arange(S, device=q4.device) * st < nr
     lb = torch.where(valid_s[None, :], lb, torch.full_like(lb, float("inf")))
     first = lb.argmin(dim=1).repeat_interleave(QT)  # per query
@@ -162,6 +182,40 @@ def resident_plain(q4, r4, rbb, s0, i0, nq, nr, st):
     return best_s, best_i
 
 
+def resident_table(q4, r4, rbb, nr, st):
+    """The resident kernel's list as a candidate table: per query tile the
+    valid sub-tiles, the one of least box gap first (the lowest index on
+    ties), then the others ascending. Returns ``cand [n_qt, n]`` and
+    ``cnt [n_qt]`` (int32), ``n`` the valid sub-tiles."""
+    n_qt, S = q4.shape[0] // QT, r4.shape[0] // st
+    n = min(S, -(-nr // st))
+    first = torch.zeros(n_qt, 1, dtype=torch.int64, device=q4.device)
+    if n:
+        lb = _box_gap2(_tile_boxes(q4, QT), _subtile_boxes(rbb, S)[:n])
+        first = lb.argmin(dim=1, keepdim=True)
+    rest = torch.arange(max(n - 1, 0), device=q4.device).expand(n_qt, -1)
+    cand = torch.cat([first, rest + (rest >= first).long()], dim=1)[:, :n]
+    return cand.to(torch.int32), torch.full((n_qt,), n, dtype=torch.int32, device=q4.device)
+
+
+def resident_split_plain(q4, r4, rbb, s0, i0, nq, nr, st, splits: int):
+    """The resident kernel's split and merge, in plain torch: share ``s``
+    walks list position 0 (the best sub-tile) from the seed, then positions
+    ``1 + s, 1 + s + splits, ...``; the merge takes the higher score, then
+    the lower list position. Equal to ``resident_plain``."""
+    cand, _ = resident_table(q4, r4, rbb, nr, st)
+    if not cand.shape[1]:
+        return _seeds(q4, s0, i0)
+    parts = []
+    for s in range(splits):
+        cols = torch.tensor([0, *range(1 + s, cand.shape[1], splits)][:cand.shape[1]],
+                            dtype=torch.int64, device=q4.device)
+        cnt = torch.full((cand.shape[0],), cols.numel(), dtype=torch.int32, device=q4.device)
+        sc, ix, p = _table_walk(q4, r4, s0, i0, cand[:, cols].contiguous(), cnt, nr, st)
+        parts.append((sc, ix, torch.where(p >= 0, cols[p.clamp(min=0)], p)))
+    return _merge(parts)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -170,7 +224,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "knn_dense_launch": [_P] * 5 + [_I] * 8 + [_P] * 6,
     "knn_cand_launch": [_P] * 8 + [_I] * 9 + [_P] * 6,
-    "knn_resident_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "knn_resident_launch": [_P] * 5 + [_I] * 8 + [_P] * 6,
     "knn_walk_config": [ctypes.POINTER(_I)],
 }
 
@@ -188,12 +242,14 @@ def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check(q4, r4, rbb, s0, i0, visits, tile, *extra):
-    """Validate a kernel's arguments: device, type, contiguity, shapes."""
+def _check(q4, r4, rbb, s0, i0, visits, tile, *extra, box=None):
+    """Validate a kernel's arguments: device, type, contiguity, shapes
+    (``rbb``: one box per ``box`` ref rows, default ``tile``)."""
     dev = q4.device
+    box = box or tile
     for name, t, dtype in (("q4", q4, torch.float32), ("r4", r4, torch.float32),
                            ("rbb", rbb, torch.float32), ("s0", s0, torch.float32),
-                           ("i0", i0, torch.int32), ("visits", visits, torch.int32),
+                           ("i0", i0, torch.int32), ("visits", visits, torch.int64),
                            *extra):
         if t is None:
             continue
@@ -204,12 +260,11 @@ def _check(q4, r4, rbb, s0, i0, visits, tile, *extra):
         raise ValueError(f"q4 must be [n * {QT}, 4], got {tuple(q4.shape)}")
     if r4.ndim != 2 or r4.shape[1] != 4 or r4.shape[0] % tile:
         raise ValueError(f"r4 must be [n * {tile}, 4], got {tuple(r4.shape)}")
-    if tuple(rbb.shape) != (r4.shape[0] // tile, 8):
-        raise ValueError(f"rbb must be [{r4.shape[0] // tile}, 8], got {tuple(rbb.shape)}")
+    if tuple(rbb.shape) != (r4.shape[0] // box, 8):
+        raise ValueError(f"rbb must be [{r4.shape[0] // box}, 8], got {tuple(rbb.shape)}")
     if (s0 is None) != (i0 is None):
         raise ValueError("s0 and i0 come together")
-    for name, t, n in (("s0", s0, q4.shape[0]), ("i0", i0, q4.shape[0]),
-                       ("visits", visits, q4.shape[0] // QT)):
+    for name, t, n in (("s0", s0, q4.shape[0]), ("i0", i0, q4.shape[0])):
         if t is not None and tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be [{n}], got {tuple(t.shape)}")
     if QT % 32 or QT > 1024:
@@ -246,9 +301,9 @@ _WALK_CONFIG = {}
 
 
 def walk_config() -> dict:
-    """The dense and candidate kernels' compile-time shape, read from the
-    built library (``knn.cu`` owns it): ``qpt`` queries per thread,
-    ``chunk`` ref rows staged at a time, ``group`` rows per running max."""
+    """The kernels' compile-time shape, read from the built library
+    (``knn.cu`` owns it): ``qpt`` queries per thread, ``chunk`` ref rows
+    staged at a time, ``group`` rows per running max."""
     if not _WALK_CONFIG:
         out = (_I * 3)()
         _fn("knn_walk_config")(out)
@@ -257,8 +312,8 @@ def walk_config() -> dict:
 
 
 def walk_items_max(n_qt: int) -> int:
-    """The most work items of a dense or candidate kernel call: one per
-    query group (``32 * qpt`` queries, one warp) and share of its list."""
+    """The most work items of a kernel call: one per query group
+    (``32 * qpt`` queries, one warp) and share of its list."""
     return n_qt * (QT // (32 * walk_config()["qpt"])) * MAX_SPLITS
 
 
@@ -275,36 +330,32 @@ def fp32_distance_bound(q: Tensor, r: Tensor) -> Tensor:
     return 2.0 ** -24 * (16.0 * (qn * rn2.sqrt() + 0.5 * rn2) + 4.0 * qn * qn)
 
 
-def _walk(symbol, q4, r4, rbb, s0, i0, table, nq, nr, rt, visits):
-    """Launch a walk kernel: dense (``table`` None: every valid tile for
-    every query tile) or candidate (``table = (cand, cnt)``)."""
+def _walk(symbol, q4, r4, rbb, s0, i0, nq, nr, rt, visits, head=(),
+          splits=(SPLIT_MIN, MAX_SPLITS)):
+    """Launch a kernel on the walk core over ref tiles of ``rt`` rows:
+    ``head`` holds the candidate kernel's table arguments, ``splits``
+    (split_min, max_splits) how a query group's list is shared out."""
     n_qt = q4.shape[0] // QT
     cfg = walk_config()
     per_tile = QT // (32 * cfg["qpt"])
     if QT % (32 * cfg["qpt"]):
-        raise ValueError(f"QT={QT}: the walk kernels need a multiple of {32 * cfg['qpt']}")
+        raise ValueError(f"QT={QT}: the kernels need a multiple of {32 * cfg['qpt']}")
     if rt % cfg["group"] or rt % min(cfg["chunk"], rt):
-        raise ValueError(f"rt={rt}: the walk kernels stage chunks of min({cfg['chunk']}, rt) "
+        raise ValueError(f"rt={rt}: the kernels stage chunks of min({cfg['chunk']}, rt) "
                          f"rows, in groups of {cfg['group']}")
+    if (r4.shape[0] // rt + 1) * rt >= 2 ** 32 - 1:
+        raise ValueError(f"{r4.shape[0]} ref rows: a (list position, row) rank needs 32 bits")
     items_max = walk_items_max(n_qt)
-    if visits is not None and (visits.device != q4.device or visits.dtype != torch.int64
-                               or tuple(visits.shape) != (items_max, 2)):
-        raise ValueError(f"visits must be int64 [{items_max}, 2] on {q4.device}")
+    if visits is not None and tuple(visits.shape) != (items_max, 3):
+        raise ValueError(f"visits must be int64 [{items_max}, 3] on {q4.device}")
     # The kernel counts each query group's shares itself (no host
     # synchronisation); one zero-filled buffer holds its merged maxima and
     # its queue counters.
-    order = None
-    if table is not None:
-        cand, cnt = table
-        # The query tiles with the longest lists start first.
-        order = torch.argsort(cnt, descending=True, stable=True).to(torch.int32)
     groups = n_qt * per_tile
     scratch = torch.zeros(q4.shape[0] + groups // 2 + 1, dtype=torch.int64, device=q4.device)
-    head = () if table is None else (
-        cand.data_ptr(), cnt.data_ptr(), order.data_ptr(), cand.shape[1])
     out_s, out_i = _outputs(q4)
     _launch(symbol, q4.data_ptr(), r4.data_ptr(), rbb.data_ptr(), _ptr(s0), _ptr(i0), *head,
-            n_qt, QT, nq, nr, r4.shape[0] // rt, rt, SPLIT_MIN, MAX_SPLITS, out_s.data_ptr(),
+            n_qt, QT, nq, nr, r4.shape[0] // rt, rt, *splits, out_s.data_ptr(),
             out_i.data_ptr(), scratch.data_ptr(), scratch[q4.shape[0]:].data_ptr(),
             _ptr(visits))
     return out_s, out_i
@@ -315,13 +366,15 @@ def dense_kernel(self, q4, r4, rbb, s0, i0, nq: int, nr: int, rt: int, visits=No
     """Replaces ``_dense_pallas_call``. ``q4 [n_qt*QT, 4]``, ``r4 [nrt*rt, 4]``,
     ``rbb [nrt, 8]``, seeds ``s0/i0 [n_qt*QT]`` or None. Returns the best
     score and index per query row. ``visits`` (optional, CUDA only): int64
-    ``[walk_items_max(n_qt), 2]`` of zeros, which receives per work item
-    (one query group's share of its list) the ref rows it staged and the
-    (query, ref) pairs it scored; rows past the call's items stay zero."""
+    ``[walk_items_max(n_qt), 3]`` of zeros, which receives per work item
+    (one query group's share of its list) the ref rows it staged, the
+    (query, ref) pairs it scored, and of those the pairs another share
+    scores too (only the resident kernel repeats any); rows past the call's
+    items stay zero."""
     if not q4.is_cuda:
         return dense_plain(q4, r4, rbb, s0, i0, nq, nr, rt)
-    _check(q4, r4, rbb, s0, i0, None, rt)
-    out = _walk("knn_dense_launch", q4, r4, rbb, s0, i0, None, nq, nr, rt, visits)
+    _check(q4, r4, rbb, s0, i0, visits, rt)
+    out = _walk("knn_dense_launch", q4, r4, rbb, s0, i0, nq, nr, rt, visits)
     self.launches += 1
     return out
 
@@ -334,31 +387,31 @@ def cand_kernel(self, q4, r4, rbb, s0, i0, cand, cnt, nq: int, nr: int, rt: int,
     int32 (entries used); seeds are required."""
     if not q4.is_cuda:
         return cand_plain(q4, r4, rbb, s0, i0, cand, cnt, nq, nr, rt)
-    _check(q4, r4, rbb, s0, i0, None, rt, ("cand", cand, torch.int32),
+    _check(q4, r4, rbb, s0, i0, visits, rt, ("cand", cand, torch.int32),
            ("cnt", cnt, torch.int32))
     if s0 is None or cand.shape[0] != q4.shape[0] // QT or cnt.shape != cand.shape[:1]:
         raise ValueError("cand_kernel needs seeds and a [n_qt, MC] table with [n_qt] counts")
-    out = _walk("knn_cand_launch", q4, r4, rbb, s0, i0, (cand, cnt), nq, nr, rt, visits)
+    # The query tiles with the longest lists start first.
+    order = torch.argsort(cnt, descending=True, stable=True).to(torch.int32)
+    out = _walk("knn_cand_launch", q4, r4, rbb, s0, i0, nq, nr, rt, visits,
+                head=(cand.data_ptr(), cnt.data_ptr(), order.data_ptr(), cand.shape[1]))
     self.launches += 1
     return out
 
 
 @_Wrapper
 def resident_kernel(self, q4, r4, rbb, s0, i0, nq: int, nr: int, st: int, visits=None):
-    """Replaces ``_resident_pallas_call``. As ``dense_kernel`` with
-    sub-tiles of ``st`` rows and their boxes ``rbb [S, 8]``."""
+    """Replaces ``_resident_pallas_call``. As ``dense_kernel`` with sub-tiles
+    of ``st`` rows; ``rbb`` holds one box per staged chunk of
+    ``min(chunk, st)`` rows (``walk_config()``). The plain version takes
+    boxes of any equal part of a sub-tile."""
     if not q4.is_cuda:
         return resident_plain(q4, r4, rbb, s0, i0, nq, nr, st)
-    _check(q4, r4, rbb, s0, i0, visits, st)
-    S = r4.shape[0] // st
-    if S > _MAX_SUBTILES:
-        raise ValueError(f"resident_kernel takes at most {_MAX_SUBTILES} sub-tiles, got {S}")
-    out_s, out_i = _outputs(q4)
-    _launch("knn_resident_launch", q4.data_ptr(), r4.data_ptr(), rbb.data_ptr(), _ptr(s0),
-            _ptr(i0), q4.shape[0] // QT, QT, nq, nr, S, st, out_s.data_ptr(),
-            out_i.data_ptr(), _ptr(visits))
+    _check(q4, r4, rbb, s0, i0, visits, st, box=min(walk_config()["chunk"], st))
+    out = _walk("knn_resident_launch", q4, r4, rbb, s0, i0, nq, nr, st, visits,
+                splits=(RES_SPLIT_MIN, RES_MAX_SPLITS))
     self.launches += 1
-    return out_s, out_i
+    return out
 
 
 KERNELS = (dense_kernel, cand_kernel, resident_kernel)
@@ -466,9 +519,12 @@ def knn(query: Tensor, ref: Tensor, nr=None, nq=None, init_idx=None,
         best_s, best_i = cand_kernel(q4, r4, rbb_c, s0, i0, order.contiguous(), counts,
                                      nq, nr, rt_c)
     elif resident_fits:
-        # The resident kernel when the whole ref set is small, else dense.
+        # The resident kernel when the whole ref set is small, else dense:
+        # one box per chunk the kernel stages (the plain version takes one
+        # per sub-tile).
         st = min(ST, RT)
-        best_s, best_i = resident_kernel(q4, r4, _tile_boxes(r_pad, st), s0, i0, nq, nr, st)
+        box = min(walk_config()["chunk"], st) if q4.is_cuda else st
+        best_s, best_i = resident_kernel(q4, r4, _tile_boxes(r_pad, box), s0, i0, nq, nr, st)
     else:
         best_s, best_i = dense_kernel(q4, r4, _tile_boxes(r_pad, RT), s0, i0, nq, nr, RT)
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from e2eslam_tpu_torch.ops import knn as K
+from torch_knn_ties import grid_tie_refs
 
 
 @pytest.fixture
@@ -83,7 +84,8 @@ def _args(dev, kernel, seeded, nr=60_000):
     bias = -0.5 * (rt * rt).sum(1)
     bias[nr:] = K.NEG
     r4 = torch.cat([rt, bias[:, None]], 1).contiguous()
-    rbb = K._tile_boxes(r4[:, :3], tile)
+    box = min(K.walk_config()["chunk"], tile) if kernel == "resident" else tile
+    rbb = K._tile_boxes(r4[:, :3], box)
     s0 = i0 = None
     if seeded:
         g = torch.Generator(device="cpu").manual_seed(3)
@@ -120,13 +122,18 @@ def test_kernel_matches_its_plain_version(card, kernel, seeded):
     nq = args[-3]
     _assert_same_nn(args[0], args[1], s_k, i_k, s_p, i_p, nq)
     assert bool((i_k[:nq] < nr).all() & (i_k[:nq] >= 0).all())
-    if kernel != "resident":  # the per-block visit record of the walk kernels
-        n_qt = args[0].shape[0] // K.QT
-        visits = torch.zeros(K.walk_items_max(n_qt), 2, dtype=torch.int64, device=card)
-        s_v, _ = wrapper(*args, visits=visits)
-        assert torch.equal(s_v, s_k)
-        rows, pairs = visits.sum(0).tolist()
-        assert 0 < pairs <= rows * K.QT
+    # The visit record, per work item: ref rows staged, pairs scored, and the
+    # pairs another share scores too. Counted once, the pairs are at most
+    # every (query row, ref row) pair.
+    n_qt = args[0].shape[0] // K.QT
+    visits = torch.zeros(K.walk_items_max(n_qt), 3, dtype=torch.int64, device=card)
+    s_v, _ = wrapper(*args, visits=visits)
+    assert torch.equal(s_v, s_k)
+    rows, pairs, repeated = visits.sum(0).tolist()
+    assert 0 < pairs <= rows * K.QT and 0 <= repeated < pairs
+    assert pairs - repeated <= args[0].shape[0] * args[1].shape[0]
+    if kernel != "resident":
+        assert repeated == 0
 
 
 @pytest.mark.cuda
@@ -196,6 +203,73 @@ def test_split_merge_keeps_the_sequential_tie_rule_on_the_card(card):
     s_p, i_p = K.cand_plain(*args)
     assert torch.equal(i_k, i_p)
     assert bool((i_k[:K.QT].long() // rt == 9).all())  # tile 9 is listed first
+
+
+def _resident_ties(dev, st=512, n_sub=9, cut=20):
+    """The exact-tie inputs (``torch_knn_ties``) on the card; ``nr`` ends
+    ``cut`` rows inside the last sub-tile."""
+    rng = np.random.default_rng(18)
+    q4, r4 = grid_tie_refs(rng, st, n_sub, 4, K.QT)
+    nr = n_sub * st - cut
+    r4[nr:, 3] = K.NEG
+    return q4.to(dev), r4.to(dev).contiguous(), q4.shape[0] - 5, nr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_resident_kernel_keeps_the_tie_rule_across_splits(card, monkeypatch, splits, seeded):
+    """Exact ties (duplicate refs in two sub-tiles and within one, seeds
+    tied with the best) with each query group's list split over several
+    work items: the kernel's result equals ``resident_plain`` bit for bit."""
+    monkeypatch.setattr(K, "RES_SPLIT_MIN", 1)
+    monkeypatch.setattr(K, "RES_MAX_SPLITS", splits)
+    st = 512
+    q4, r4, nq, nr = _resident_ties(card, st)
+    s0 = i0 = None
+    if seeded:
+        g = torch.Generator(device="cpu").manual_seed(5)
+        i0 = torch.randint(0, nr, (q4.shape[0],), generator=g, dtype=torch.int32).to(card)
+        i0[:40] = 2 * st
+        r = r4[:, :3]
+        s0 = ((q4[:, :3] * r[i0.long()]).sum(1) - 0.5 * (r[i0.long()] ** 2).sum(1)).contiguous()
+    args = (q4, r4, K._tile_boxes(r4[:, :3], K.walk_config()["chunk"]), s0, i0, nq, nr, st)
+    s_k, i_k = K.resident_kernel(*args)
+    s_p, i_p = K.resident_plain(*args)
+    assert torch.equal(s_k[:nq], s_p[:nq]) and torch.equal(i_k[:nq], i_p[:nq])
+    if not seeded:
+        assert bool((i_k[:K.QT].long() // st == 6).all())  # the list starts at 6
+
+
+@pytest.mark.cuda
+def test_resident_kernel_ignores_rows_past_nr_inside_a_subtile(card):
+    """``nr`` ends inside a sub-tile whose rows past it repeat the queries
+    exactly: the kernel keeps that sub-tile's valid rows and never picks a
+    row past ``nr``."""
+    q4, r4, nq, nr = _resident_ties(card, cut=300)
+    r4[nr:nr + 256, :3] = q4[:256, :3]
+    r4[nr:nr + 256, 3] = K.NEG
+    args = (q4, r4, K._tile_boxes(r4[:, :3], K.walk_config()["chunk"]), None, None, nq, nr,
+            512)
+    s_k, i_k = K.resident_kernel(*args)
+    s_p, i_p = K.resident_plain(*args)
+    assert torch.equal(s_k[:nq], s_p[:nq]) and torch.equal(i_k[:nq], i_p[:nq])
+    assert bool((i_k[:nq] < nr).all())
+    assert bool((i_k[:nq].long() // 512 == nr // 512).any())  # the cut sub-tile still wins
+
+
+@pytest.mark.cuda
+def test_resident_kernel_with_a_far_outlier_query(card):
+    """One query far from the refs in a query group of near ones (its group
+    cannot prune, the others can): every result is exact."""
+    rng = np.random.default_rng(29)
+    q, r = _clustered(rng, 64, K.ST, 3000)
+    q[1000] = [60.0, -60.0, 60.0]
+    qc, rc = torch.from_numpy(q).to(card), torch.from_numpy(r).to(card)
+    before = K.resident_kernel.launches
+    d, i = K.knn(qc, rc)
+    assert K.resident_kernel.launches == before + 1
+    _assert_near_oracle(qc, rc, d, i, rc.shape[0])
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ from e2eslam_tpu.ops.spatial_sort import sort_map_points as jax_sort
 from e2eslam_tpu_torch.ops import knn as port_knn_mod
 from e2eslam_tpu_torch.ops import spatial_sort as port_sort
 from e2eslam_tpu_torch.ops.knn import knn as port_knn
+from torch_knn_ties import grid_tie_refs
 
 JAX_KNN = sys.modules["e2eslam_tpu.ops.knn"]
 ATOL = 1e-5
@@ -255,6 +256,66 @@ def test_split_merge_keeps_the_sequential_tie_rule(splits):
     tile = want_i.long() // rt
     assert bool((tile[:qt] != 2).all()) and bool((tile[qt:] != 9).all())
     assert bool((tile[:qt] == 9).any()) and bool((tile[qt:] == 2).any())
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("splits", [2, 3, 5])
+def test_resident_split_merge_keeps_the_sequential_tie_rule(splits, seeded):
+    """The resident kernel splits each query group's list over work items,
+    every share walking the best sub-tile first. With exact ties (duplicate
+    refs in two sub-tiles and within one) and seeds tied with the best, the
+    merge must pick what ``resident_plain`` (the sequential walk) picks."""
+    K = port_knn_mod
+    rng = np.random.default_rng(18)
+    st, n_sub = 64, 9
+    q4, r4 = grid_tie_refs(rng, st, n_sub, 3, K.QT)
+    nq, nr = q4.shape[0] - 5, n_sub * st - 20  # nr ends inside the last sub-tile
+    r4[nr:, 3] = K.NEG
+    s0 = i0 = None
+    if seeded:
+        i0 = torch.from_numpy(rng.integers(0, nr, q4.shape[0]).astype(np.int32))
+        i0[:40] = 2 * st  # tied with the best of query tile 0: the seed must win
+        r = r4[:, :3]
+        s0 = (q4[:, :3] * r[i0.long()]).sum(1) - 0.5 * (r[i0.long()] ** 2).sum(1)
+    for rbb in (K._tile_boxes(r4[:, :3], st), K._tile_boxes(r4[:, :3], st // 4)):
+        want_s, want_i = K.resident_plain(q4, r4, rbb, s0, i0, nq, nr, st)
+        got_s, got_i = K.resident_split_plain(q4, r4, rbb, s0, i0, nq, nr, st, splits)
+        torch.testing.assert_close(got_s, want_s, rtol=0, atol=0)
+        torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+    # The ties were exercised: query tile 0's nearest rows sit in sub-tiles
+    # 2 and 6 alike, and the list (sub-tile 6 first) gives them to 6 unless
+    # a seed ties with them.
+    if seeded:
+        assert bool((want_i[:40] == 2 * st).all())
+    else:
+        assert bool((want_i[:K.QT].long() // st == 6).all())
+    assert bool((want_i[K.QT:2 * K.QT].long() // st == 2).any())
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_resident_order_is_a_list_walk(seeded):
+    """``resident_plain`` equals ``cand_plain`` fed the table of each query
+    tile's best sub-tile, then the others ascending: the resident order is
+    a list walk under the candidate kernel's tie rule."""
+    K = port_knn_mod
+    rng = np.random.default_rng(20)
+    st, n_sub = 64, 9
+    q4, r4 = grid_tie_refs(rng, st, n_sub, 4, K.QT)
+    nq, nr = q4.shape[0], n_sub * st - 20
+    r4[nr:, 3] = K.NEG
+    s0 = i0 = None
+    if seeded:
+        i0 = torch.from_numpy(rng.integers(0, nr, q4.shape[0]).astype(np.int32))
+        r = r4[:, :3]
+        s0 = (q4[:, :3] * r[i0.long()]).sum(1) - 0.5 * (r[i0.long()] ** 2).sum(1)
+    rbb = K._tile_boxes(r4[:, :3], st)
+    cand, cnt = K.resident_table(q4, r4, rbb, nr, st)
+    assert cand.shape == (4, n_sub) and cand[0, 0] == 6 and cand[1, 0] == 2
+    assert sorted(cand[0].tolist()) == list(range(n_sub))
+    want = K.resident_plain(q4, r4, rbb, s0, i0, nq, nr, st)
+    got = K.cand_plain(q4, r4, rbb, s0, i0, cand, cnt, nq, nr, st)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_table_entries_naming_no_valid_tile_are_skipped():
