@@ -22,10 +22,34 @@ Phases (any failure ends the script with a non-zero exit):
               dense kernel; on the largest resident call, the resident
               kernel's options (box size, shares of a list) are timed and
               must all give the same bits;
-  5. small    the same path at 64x64 on the card, with deterministic
-              algorithms and with the default ones, and on the CPU (plain
-              versions): the same keyframes, abs_rel and map size.
-The second-to-last line is the kernels' JSON line, the last line the result.
+  5. chamfer  online adaptation with the exact bidirectional chamfer at full
+              width (tools/bench_exact.py's TUM row on configs/config.yaml:
+              dilation 5, 40 frames, threshold 0.12, three3d off), its
+              map->frame calls (the map's rows query the frame's 81,920:
+              the only calls with more query rows than a frame has pixels)
+              counted apart; they must launch the resident kernel alone. The
+              largest frame->map call (candidate kernel) and tail seed
+              (resident kernel) are held against their plain versions; the
+              largest map->frame call is held against the plain version
+              (run 64 query tiles at a time), timed, and timed again through
+              the candidate kernel on a table built as the dispatcher builds
+              one (the ``route_options`` line), which must give the same
+              scores;
+  6. losses   12 frames of configs/config.yaml with the geometric,
+              smoothness, depth-regularizer, auto-masking and
+              min-reprojection terms, 3-frame windows, a sort period of 4,
+              the texture gate and debias on: finite losses, abs_rel in
+              (0, 0.5), regathered and cross-keyframe seeded keyframes
+              counted; then 6 frames of the same with the monodepth2 network.
+              Each run's launches are counted apart, and every KNN call of
+              each run (regathered maps, cross-keyframe seeds) is held
+              against its plain version;
+  7. small    the default path and the chamfer one at 64x64 on the card, with
+              deterministic algorithms and with the default ones, and on the
+              CPU (plain versions): the same keyframes, abs_rel and map size.
+The second-to-last line is the kernels' JSON line (the resident kernel has
+a second entry, ``"call": "chamfer b->a"``, for its map->frame calls), the
+last line the result.
 Kernel and plain version must agree to the float32 rounding bound of the
 score (``fp32_distance_bound`` in ops/knn.py, from the rows picked); where
 their indices differ, each check line reports the float64 distance gaps
@@ -81,13 +105,22 @@ def launch_counts(knn) -> dict:
 
 class Recorder:
     """Wraps the kernel wrappers of ``ops.knn``: every call goes through
-    (and is counted by) the real wrapper; the largest call of each kernel
-    (by visited-work proxy: query rows x ref rows) keeps its arguments.
+    (and is counted by) the real wrapper. Per kernel it keeps the largest
+    call's arguments (by visited-work proxy: query rows x ref rows) under
+    ``kernel``, or under ``kernel:ba`` for a call of more than
+    ``frame_rows`` query rows (the chamfer's map->frame direction: the
+    map's rows query one frame; every other call's queries are a frame's
+    pixels); ``count`` tallies the calls under the same keys. With
+    ``keep_all``, ``all`` keeps every call's (key, arguments).
     ``warm_dense`` counts dense calls that carried warm seeds."""
 
-    def __init__(self, knn_mod):
+    def __init__(self, knn_mod, frame_rows=None, keep_all=False):
         self.mod = knn_mod
+        self.frame_rows = frame_rows
+        self.keep_all = keep_all
         self.calls = {}
+        self.count = {}
+        self.all = []
         self.orig = {}
         self.warm_dense = 0
 
@@ -101,8 +134,14 @@ class Recorder:
                 out = _orig(*args, **kw)
                 self.warm_dense += _key == "dense" and args[3] is not None
                 size = args[0].shape[0] * args[1].shape[0]
-                if _key not in self.calls or size >= self.calls[_key][0]:
-                    self.calls[_key] = (size, args)
+                k = _key
+                if self.frame_rows is not None and args[0].shape[0] > self.frame_rows:
+                    k = f"{_key}:ba"
+                self.count[k] = self.count.get(k, 0) + 1
+                if k not in self.calls or size >= self.calls[k][0]:
+                    self.calls[k] = (size, args)
+                if self.keep_all:
+                    self.all.append((_key, args))
                 return out
 
             setattr(self.mod, name, rec)
@@ -131,11 +170,16 @@ def timed(fn, reps: int):
     return times[len(times) // 2]
 
 
-def compare_call(knn, key, args, tag, stats, *, timing=False):
-    """Kernel vs plain version on one call's arguments."""
+def compare_call(knn, key, args, tag, stats, *, timing=False, plain=None, stats_key=None,
+                 report=True):
+    """Kernel vs plain version (``plain``, default the module's) on one
+    call's arguments; the results go to ``stats[stats_key or key]``, the
+    check line is printed if ``report``. Returns the kernel's scores and
+    indices, and the check line."""
     import torch
 
-    plain, kern = getattr(knn, f"{key}_plain"), getattr(knn, f"{key}_kernel")
+    kern = getattr(knn, f"{key}_kernel")
+    plain = plain or getattr(knn, f"{key}_plain")
     q4, r4 = args[0], args[1]
     nq = args[-3]
     s_k, i_k = kern(*args)
@@ -163,7 +207,7 @@ def compare_call(knn, key, args, tag, stats, *, timing=False):
     if bool((gap > tol[diff]).any()):
         fail(f"{key} {tag}: {int((gap > tol[diff]).sum())} indices differ where the "
              f"nearest neighbour is unique (largest float64 gap {float(gap.max()):.3g})")
-    st = stats.setdefault(key, {"max_abs_err": 0.0, "checks": 0})
+    st = stats.setdefault(stats_key or key, {"max_abs_err": 0.0, "checks": 0})
     st["max_abs_err"] = max(st["max_abs_err"], float(err.max()) if nq else 0.0)
     st["checks"] += 1
     n_diff = int(gap.numel())
@@ -181,7 +225,9 @@ def compare_call(knn, key, args, tag, stats, *, timing=False):
         st.update({k: line[k] for k in ("ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms",
                                          "bound_by", "case", "cdist_ms", "visited_pairs",
                                          "repeated_pairs", "visit_max", "visit_mean")})
-    print(json.dumps(line), flush=True)
+    if report:
+        print(json.dumps(line), flush=True)
+    return s_k, i_k, line
 
 
 def measure(knn, key, args, kern, plain):
@@ -503,13 +549,195 @@ def resident_options(knn, args):
                               "visit_mean": float(per.double().mean()), "ms": ms,
                               "bound_ms": pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3}), flush=True)
 
+def resident_plain_by_tiles(knn, tiles=64):
+    """``resident_plain`` run ``tiles`` query tiles at a time (a query
+    tile's list depends on that tile alone, so the result is the whole
+    call's): a map-sized call's plain version in bounded memory."""
+    import torch
+
+    def plain(q4, r4, rbb, s0, i0, nq, nr, st):
+        step = tiles * knn.QT
+        parts = [knn.resident_plain(q4[a:a + step], r4, rbb, None if s0 is None else s0[a:a + step],
+                                    None if i0 is None else i0[a:a + step],
+                                    max(0, min(step, nq - a)), nr, st)
+                 for a in range(0, q4.shape[0], step)]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    return plain
+
+
+def phase_chamfer(knn, stats):
+    import torch
+
+    from e2eslam_tpu_torch.apps.profile_adaptation import chamfer_config
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    cfg = chamfer_config(load_yaml(default_config_path()))  # no cut: all 40 frames
+    runner = OnlineAdaptation(cfg)
+    for k in knn.KERNELS:
+        k.launches = 0
+    with Recorder(knn, frame_rows=int(cfg.DATA.height) * int(cfg.DATA.width)) as rec:
+        result = runner.run(verbose=False)
+    launches = launch_counts(knn)
+    ba = {key: rec.count.get(f"{key}:ba", 0) for key in KERNEL_INFO}
+    for i, (frame, m) in enumerate(zip(result["keyframes"], result["metrics"])):
+        print(json.dumps({"phase": "chamfer", "keyframe": i, "frame": frame,
+                          "loss": m["total_loss"], "chamfer": m["chamfer"],
+                          "abs_rel": m["abs_rel"]}), flush=True)
+    summary = {"phase": "chamfer", "keyframes": result["num_keyframes"],
+               "refine_steps": result["refine_steps"], "map_points": result["map_points"],
+               "mean_abs_rel": result["mean_abs_rel"], "elapsed_s": result["elapsed_s"],
+               "steps_per_sec": result["steps_per_sec"], "launches": launches,
+               "ba_launches": ba, "capacity": runner.capacity}
+    print(json.dumps(summary), flush=True)
+    losses = [m["total_loss"] for m in result["metrics"]]
+    if not result["metrics"] or not all(map(_finite, losses)):
+        fail(f"chamfer: non-finite or missing losses: {losses}")
+    if not (0.0 < result["mean_abs_rel"] < 0.5):
+        fail(f"chamfer: mean abs_rel {result['mean_abs_rel']} outside (0, 0.5)")
+    if not result["metrics"][-1]["chamfer"] > 0:
+        fail("chamfer: the last keyframe's chamfer loss is not positive")
+    if ba != {"dense": 0, "cand": 0, "resident": result["refine_steps"]}:
+        fail(f"chamfer: the map->frame calls launched {ba}, not the resident kernel "
+             f"once in each of {result['refine_steps']} steps")
+    for key in ("cand", "resident"):
+        if key not in rec.calls:
+            fail(f"chamfer: no frame->map call launched the {key} kernel")
+    if rec.warm_dense:
+        fail(f"chamfer: {rec.warm_dense} warm calls took the dense kernel")
+    # The largest frame->map call (a->b, candidate kernel) and tail seed
+    # (resident kernel) against their plain versions; then the largest
+    # map->frame call against its plain version (by query tiles), timed,
+    # with the candidate route on the same inputs.
+    compare_call(knn, "cand", rec.calls["cand"][1], "chamfer a->b", stats)
+    compare_call(knn, "resident", rec.calls["resident"][1], "chamfer tail seed", stats)
+    args = rec.calls["resident:ba"][1]
+    out = compare_call(knn, "resident", args, "chamfer b->a", stats, timing=True,
+                       plain=resident_plain_by_tiles(knn), stats_key="resident_ba")
+    stats["resident_ba"]["launches"] = ba["resident"]
+    route_options(knn, args, out[:2])
+    return launches, summary
+
+
+def route_options(knn, args, resident_out):
+    """The candidate kernel on a resident call's inputs, with the table the
+    dispatcher would build for it (ref tiles of RT_CAND rows whose box gap
+    is below each query tile's seeded worst-best distance, best first): it
+    must give the resident kernel's scores bit for bit. Both wrappers timed
+    with CUDA events (median of 5 over 3 back-to-back calls); the table's
+    build is timed apart. Run after the path's launch counts are read."""
+    import torch
+
+    q4, r4, rbb, s0, i0, nq, nr, st = args
+    rt = knn.RT_CAND
+
+    def table():
+        return knn.cand_table(q4, s0, r4[:, :3], nq, nr, rt)
+
+    rbb_c, order, counts = table()
+
+    def cand():
+        return knn.cand_kernel(q4, r4, rbb_c, s0, i0, order, counts, nq, nr, rt)
+
+    s_c, i_c = cand()
+    s_r, i_r = resident_out
+    same = bool(torch.equal(s_c[:nq], s_r[:nq]))
+    diff = int((i_c[:nq] != i_r[:nq]).sum())
+    line = {"phase": "route_options", "call": "chamfer b->a", "nq": nq, "nr": nr,
+            "same_scores": same, "index_mismatches": diff,
+            "resident_ms": timed(lambda: [knn.resident_kernel(*args) for _ in range(3)], 5) / 3,
+            "cand_ms": timed(lambda: [cand() for _ in range(3)], 5) / 3,
+            "cand_table_ms": timed(table, 5),
+            "table_entries": int(counts.sum()), "table_width": int(order.shape[1])}
+    print(json.dumps(line), flush=True)
+    if not same:
+        fail("the candidate route changed a score of the chamfer's map->frame call")
+    if diff:
+        # Equal scores, other rows: only an exact float32 tie may do that.
+        q, r = q4[:nq, :3].double(), r4[:, :3].double()
+        d = (i_c[:nq] != i_r[:nq])
+        gap = (((q - r[i_c[:nq].long()]) ** 2).sum(1) - ((q - r[i_r[:nq].long()]) ** 2).sum(1))
+        tol = knn.fp32_distance_bound(q, r[i_r[:nq].long()])
+        if bool((gap.abs()[d] > tol[d]).any()):
+            fail("the candidate route picked another neighbour where it is unique")
+
+
+def phase_losses(knn, stats):
+    """The PFT loss family beyond the default path, at full width, in two
+    runs, each with its own launch counts; every KNN call of each run is
+    then held against its plain version. Returns the launches per kernel,
+    summed over the two runs."""
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    def run(frames, **model):
+        cfg = load_yaml(default_config_path())
+        cfg.DEMO.sequence_length = frames
+        cfg.DEMO.sequence_length_refinement = 3
+        for flag in ("geometric", "smoothness", "depth_regularizer", "auto_masking",
+                     "min_reprojection", "three3d_debias"):
+            cfg.LOSS[flag] = True
+        cfg.LOSS.knn_sort_period = 4
+        cfg.LOSS.three3d_texture_gate = 600.0
+        cfg.MODEL.update(model)
+        net = cfg.MODEL.depth_network
+        runner = OnlineAdaptation(cfg)
+        for k in knn.KERNELS:
+            k.launches = 0
+        with Recorder(knn, keep_all=True) as rec:
+            r = runner.run(verbose=False)
+        launches = launch_counts(knn)
+        terms = ("total_loss", "photometric", "geometric", "smoothness", "depth_reg", "three3d")
+        line = {"phase": "losses", "network": net, "frames": frames,
+                "keyframes": r["num_keyframes"], "mean_abs_rel": r["mean_abs_rel"],
+                "map_points": r["map_points"], "regathers": r["regathers"],
+                "seeded_keyframes": r["seeded_keyframes"], "steps_per_sec": r["steps_per_sec"],
+                "launches": launches, "last": {k: r["metrics"][-1][k] for k in terms}}
+        print(json.dumps(line), flush=True)
+        bad = [(i, k) for i, m in enumerate(r["metrics"]) for k in terms if not _finite(m[k])]
+        if not r["metrics"] or bad:
+            fail(f"losses ({net}): non-finite or missing terms {bad[:5]}")
+        if not (0.0 < r["mean_abs_rel"] < 0.5):
+            fail(f"losses ({net}): mean abs_rel {r['mean_abs_rel']}")
+        if r["regathers"] == 0 or r["seeded_keyframes"] == 0:
+            fail(f"losses ({net}): the sort cache was not used")
+        for key in ("cand", "resident"):
+            if launches[key] == 0:
+                fail(f"losses ({net}): the run launched no {key} kernel")
+        if rec.warm_dense:
+            fail(f"losses ({net}): {rec.warm_dense} warm calls took the dense kernel")
+        # Every call of the run (regathered maps, cross-keyframe seeds)
+        # against its plain version: one line per kernel.
+        held = {}
+        for key, args in rec.all:
+            chk = compare_call(knn, key, args, f"losses {net}", stats, report=False)[2]
+            h = held.setdefault(key, {"phase": "losses", "network": net, "kernel": key,
+                                      "calls_held": 0, "max_abs_err": 0.0,
+                                      "max_err_over_tol": 0.0, "index_mismatches": 0,
+                                      "mismatch_gap_over_tol_max": 0.0})
+            h["calls_held"] += 1
+            for k in ("max_abs_err", "max_err_over_tol", "mismatch_gap_over_tol_max"):
+                h[k] = max(h[k], chk[k])
+            h["index_mismatches"] += chk["index_mismatches"]
+        for h in held.values():
+            print(json.dumps(h), flush=True)
+        return launches
+
+    a = run(12)
+    b = run(6, depth_network="monodepth2")
+    return {key: a[key] + b[key] for key in a}
+
 
 def _finite(x) -> bool:
     return x == x and abs(x) != float("inf")
 
 
-def phase_small():
-    """The same path at 64x64: card (kernels, cuDNN) vs CPU (plain versions)."""
+SMALL_CONFIGS = {"default": {}, "chamfer": {"three3d_loss": False, "chamfer_distance": True}}
+
+
+def phase_small(name):
+    """A path at 64x64: card (kernels, cuDNN) vs CPU (plain versions)."""
     import torch
 
     from e2eslam_tpu_torch.config import default_config_path, load_yaml
@@ -520,6 +748,7 @@ def phase_small():
         cfg.DATA.height, cfg.DATA.width = 64, 64
         cfg.DEMO.sequence_length = 5
         cfg.DEMO.frame_threshold = 0.01
+        cfg.LOSS.update(SMALL_CONFIGS[name])
         return OnlineAdaptation(cfg, device=device).run(verbose=False)
 
     # One card run with deterministic algorithms (restored after), held to
@@ -540,19 +769,19 @@ def phase_small():
         torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
     d = run("cuda")  # the default algorithms, as the main path runs
     b = run("cpu")
-    line = {"phase": "small", "runs": ["cuda deterministic", "cuda default", "cpu"],
+    line = {"phase": "small", "config": name, "runs": ["cuda deterministic", "cuda default", "cpu"],
             "keyframes": [a["num_keyframes"], d["num_keyframes"], b["num_keyframes"]],
             "mean_abs_rel": [a["mean_abs_rel"], d["mean_abs_rel"], b["mean_abs_rel"]],
             "map_points": [a["map_points"], d["map_points"], b["map_points"]]}
     print(json.dumps(line), flush=True)
     if not a["keyframes"] == d["keyframes"] == b["keyframes"]:
-        fail("card and CPU chose different keyframes")
+        fail(f"small ({name}): card and CPU chose different keyframes")
     # The default run's mean abs_rel to 5%: twice the widest gap to the CPU
     # over those 30 runs (2.4%).
     if abs(d["mean_abs_rel"] - b["mean_abs_rel"]) > 5e-2 * abs(b["mean_abs_rel"]):
-        fail("the card's default-algorithm mean abs_rel differs from the CPU's beyond 5%")
+        fail(f"small ({name}): the card's default-algorithm mean abs_rel differs from the CPU's beyond 5%")
     if abs(d["map_points"] - b["map_points"]) > max(4, b["map_points"] // 100):
-        fail("the card's default-algorithm map size differs from the CPU's beyond 1%")
+        fail(f"small ({name}): the card's default-algorithm map size differs from the CPU's beyond 1%")
     # The tolerances of tests/test_torch_engine.py's run against the JAX
     # package: the first keyframe (empty map) to 1e-3; later ones to 5%, as
     # nearest-neighbour near-ties flip a few neighbours and Adam's
@@ -560,9 +789,9 @@ def phase_small():
     for k, (ma, mb) in enumerate(zip(a["metrics"], b["metrics"])):
         rtol = 1e-3 if k == 0 else 5e-2
         if abs(ma["abs_rel"] - mb["abs_rel"]) > rtol * abs(mb["abs_rel"]):
-            fail(f"card and CPU abs_rel differ beyond {rtol} at keyframe {k}")
+            fail(f"small ({name}): card and CPU abs_rel differ beyond {rtol} at keyframe {k}")
     if abs(a["map_points"] - b["map_points"]) > max(4, b["map_points"] // 100):
-        fail("card and CPU map sizes differ beyond 1%")
+        fail(f"small ({name}): card and CPU map sizes differ beyond 1%")
 
 
 def main() -> int:
@@ -608,16 +837,27 @@ def main() -> int:
     phase_kernels(knn, spatial_sort, stats)
     # 4. main path
     launches, _ = phase_main(knn, stats)
-    # 5. small input, card vs CPU
-    phase_small()
+    # 5. the exact chamfer at map scale
+    chamfer_launches, _ = phase_chamfer(knn, stats)
+    # 6. the loss family, two networks
+    losses_launches = phase_losses(knn, stats)
+    # 7. small input, card vs CPU
+    for config in SMALL_CONFIGS:
+        phase_small(config)
 
     kernels = []
-    for key, (kname, replaces) in KERNEL_INFO.items():
-        # Times come from the largest main-path call of the kernel; a kernel
-        # the main path did not launch keeps its main-path-like phase-3 time.
-        st = stats[key]
-        kernels.append({"name": kname, "route": "cuda", "source": SOURCE,
-                        "replaces": replaces, "launches": launches[key],
+    rows = [(key, key, "main path", launches[key]) for key in KERNEL_INFO]
+    rows.append(("resident", "resident_ba", "chamfer b->a", stats["resident_ba"]["launches"]))
+    for key, st_key, call, n in rows:
+        # Times come from the largest call of the kernel on its path; a
+        # kernel the main path did not launch keeps its main-path-like
+        # phase-3 time.
+        kname, replaces = KERNEL_INFO[key]
+        st = stats[st_key]
+        kernels.append({"name": kname, "call": call, "route": "cuda", "source": SOURCE,
+                        "replaces": replaces, "launches": n,
+                        "chamfer_launches": chamfer_launches[key],
+                        "losses_launches": losses_launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                         "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),

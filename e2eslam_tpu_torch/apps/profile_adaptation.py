@@ -1,7 +1,8 @@
 """Measure online adaptation on one CUDA card: steps/s, quality, where the time goes.
 
     python -m e2eslam_tpu_torch.apps.profile_adaptation \\
-        [--config_path configs/config.yaml] [--profile_frames 12] [--out DIR]
+        [--config_path configs/config.yaml] [--workload config|chamfer]
+        [--profile_frames 12] [--out DIR]
 
 Three runs of the config's main path, each on a fresh runner with the same
 seeded weights, after the kernels are built:
@@ -11,8 +12,9 @@ seeded weights, after the kernels are built:
   3. ``--profile_frames`` frames under ``torch.profiler``: device time by
      kernel family, and the device's idle share over the adaptation loop
      (1 - kernel time / the run's own clock, profiler overhead included).
-Prints one JSON object per run; with ``--out DIR`` also writes them to
-``DIR/profile.json``.
+``--workload chamfer`` applies tools/bench_exact.py's TUM chamfer row to
+the config (``chamfer_config``). Prints one JSON object per run; with
+``--out DIR`` also writes them to ``DIR/profile.json``.
 """
 
 from __future__ import annotations
@@ -48,8 +50,34 @@ def _family(name: str) -> str:
     return "elementwise / other"
 
 
-def _config(path, frames=None):
-    cfg = load_yaml(path)
+def chamfer_config(cfg):
+    """tools/bench_exact.py's TUM chamfer row (:134-144) on its base config
+    (:35-50): 40 frames at dilation 5, keyframes 0.12 m apart, three3d off,
+    the exact bidirectional chamfer on, brute KNN at strides 1/1, scatter
+    fusion, 3 refine steps, the median over every 4th pixel. In float32
+    with the per-tensor Adam: the row's bf16 network and fused update
+    belong to a later slice of the port."""
+    cfg.DATA.name = "synthetic"
+    cfg.DATA.start = 0
+    cfg.DATA.dilation = 5
+    cfg.DEMO.sequence_length = 40
+    cfg.DEMO.frame_threshold = 0.12
+    cfg.OPTIMIZATION.refinement_steps = 3
+    cfg.MODEL.fusion_impl = "scatter"
+    cfg.LOSS.knn_impl = "brute"
+    cfg.LOSS.three3d_query_stride = 1
+    cfg.LOSS.three3d_map_stride = 1
+    cfg.LOSS.three3d_loss = False
+    cfg.LOSS.chamfer_distance = True
+    cfg.ABLATION.median_stride = 4
+    return cfg
+
+
+WORKLOADS = {"config": lambda cfg: cfg, "chamfer": chamfer_config}
+
+
+def _config(path, workload="config", frames=None):
+    cfg = WORKLOADS[workload](load_yaml(path))
     if frames:
         cfg.DEMO.sequence_length = int(frames)
     return cfg
@@ -74,6 +102,7 @@ def _run(cfg):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config_path", default=default_config_path())
+    p.add_argument("--workload", choices=sorted(WORKLOADS), default="config")
     p.add_argument("--profile_frames", type=int, default=12)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
@@ -84,19 +113,19 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-           "build_s": cuda_build.build()}
+           "workload": args.workload, "build_s": cuda_build.build()}
     print(json.dumps(out), flush=True)
 
-    _run(_config(args.config_path, 4))  # warm-up
+    _run(_config(args.config_path, args.workload, 4))  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    timed = _run(_config(args.config_path))
+    timed = _run(_config(args.config_path, args.workload))
     timed["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["timed"] = timed
     print(json.dumps({"timed": timed}), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        profiled = _run(_config(args.config_path, args.profile_frames))
+        profiled = _run(_config(args.config_path, args.workload, args.profile_frames))
     # The run's own clock starts after the runner is built and the frames
     # are rendered, so the idle share is over the adaptation loop alone.
     wall_ms = profiled["elapsed_s"] * 1e3

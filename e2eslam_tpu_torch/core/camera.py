@@ -24,3 +24,12 @@ def inverse_intrinsics(K: Tensor) -> Tensor:
         ],
         dim=-2,
     )
+
+
+def normalize_intrinsics(K: Tensor, width: float = 640.0, height: float = 480.0) -> Tensor:
+    """Divide the first two rows of K by the native sensor resolution (the
+    reference's monodepth2 normalisation, ``utils/training_utils.py:154-174``:
+    640 x 480 for ICL and TUM alike)."""
+    scale = torch.ones(4, 1, dtype=K.dtype, device=K.device)
+    scale[0, 0], scale[1, 0] = 1.0 / width, 1.0 / height
+    return K * scale

@@ -7,12 +7,16 @@ import torch
 Tensor = torch.Tensor
 
 
-def disp_to_depth(disp: Tensor, min_depth: float, max_depth: float) -> Tensor:
-    """monodepth2 disparity -> depth: sigmoid output mapped into
-    ``[1/max_depth, 1/min_depth]``, then inverted."""
+def scale_disp(disp: Tensor, min_depth: float, max_depth: float) -> Tensor:
+    """Map a sigmoid output into the disparity range ``[1/max_depth, 1/min_depth]``."""
     min_disp = 1.0 / max_depth
     max_disp = 1.0 / min_depth
-    return 1.0 / (min_disp + (max_disp - min_disp) * disp)
+    return min_disp + (max_disp - min_disp) * disp
+
+
+def disp_to_depth(disp: Tensor, min_depth: float, max_depth: float) -> Tensor:
+    """monodepth2 disparity -> depth: ``scale_disp``, then inverted."""
+    return 1.0 / scale_disp(disp, min_depth, max_depth)
 
 
 def indoor_disp_to_depth(disp: Tensor) -> Tensor:

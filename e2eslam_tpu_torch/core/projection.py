@@ -21,6 +21,7 @@ import torch
 Tensor = torch.Tensor
 
 EPS = 1e-7
+MIN_WARPED_DEPTH = 1e-3
 
 
 def pixel_grid(height: int, width: int, dtype=torch.float32, device=None) -> Tensor:
@@ -44,10 +45,14 @@ def backproject(depth: Tensor, inv_K: Tensor) -> Tensor:
     return pts.permute(0, 2, 1).reshape(B, H, W, 3)
 
 
-def project(points: Tensor, K: Tensor, T: Tensor) -> Tuple[Tensor, Tensor]:
+def project(points: Tensor, K: Tensor, T: Tensor, *,
+            return_depth: bool = False) -> Tuple[Tensor, ...]:
     """Project ``[B, H, W, 3]`` camera points through ``T`` and ``K``.
 
-    Returns ``(grid [B,H,W,2], valid [B,H,W,1])``.
+    Returns ``(grid [B,H,W,2], valid [B,H,W,1])``; with ``return_depth``
+    ``(grid, warped_depth [B,H,W,1], valid)``, the post-transform depth
+    clamped at ``MIN_WARPED_DEPTH`` (the reference's geometric branch,
+    ``view_synthesis.py:73-76``).
     """
     B, H, W, _ = points.shape
     P = (K @ T)[:, :3, :].to(points.dtype)  # [B, 3, 4]
@@ -64,4 +69,6 @@ def project(points: Tensor, K: Tensor, T: Tensor) -> Tuple[Tensor, Tensor]:
     uv = torch.stack([uv[..., 0] / (W - 1), uv[..., 1] / (H - 1)], dim=-1)
     grid = ((uv - 0.5) * 2.0).reshape(B, H, W, 2)
     valid = (grid.abs().amax(dim=-1, keepdim=True) <= 1.0).to(points.dtype)
+    if return_depth:
+        return grid, z.clamp(min=MIN_WARPED_DEPTH).reshape(B, H, W, 1), valid
     return grid, valid

@@ -1,9 +1,11 @@
-"""Online adaptation: keyframe selection -> per-pair refinement -> fusion.
+"""Online adaptation: keyframe selection -> per-window refinement -> fusion.
 
 The product workload (reference ``online_adaption.py``, class ``SLAM``):
 stream a sequence, select keyframes by camera-center distance, run R
-refinement steps of the depth network per keyframe pair, then fuse the
-refined pair into the global map. One eager loop over keyframes.
+refinement steps of the depth network per keyframe window, then fuse the
+newest keyframe pair into the global map. One eager loop over keyframes:
+the JAX package's per-keyframe loop (``adaptation.py:225-377``), which also
+serves its 3-frame windows, its sort cache and its cross-keyframe seeds.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from e2eslam_tpu_torch.data.pipeline import load_batch, make_dataset
 from e2eslam_tpu_torch.device import resolve_device, set_full_fp32
 from e2eslam_tpu_torch.engine.refine import PairBatch, RefinementEngine, validate_config
+from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, regather_sorted
 from e2eslam_tpu_torch.losses.trajectory import (
     absolute_trajectory_error,
     relative_pose_error,
@@ -50,8 +53,13 @@ class OnlineAdaptation:
     """Config-driven online-adaptation runner.
 
     ``device``: ``"cpu"`` runs on the CPU; otherwise CUDA (see
-    ``device.resolve_device``). ``model``: an optional ``DispResNetIndoor``
+    ``device.resolve_device``). ``model``: an optional depth network
     whose weights to adapt (default: the seeded initialisation).
+
+    ``DEMO.sequence_length_refinement`` F: each keyframe refines the window
+    of the last F keyframes, oldest first, with the frame at index 1 as the
+    target (F = 3: the middle one, reference demo.py:437-452); fusion always
+    takes the newest pair (prev, frame).
     """
 
     def __init__(self, config, *, dataset=None, device=None, model=None):
@@ -63,8 +71,9 @@ class OnlineAdaptation:
                     f"MODEL.{key}: checkpoints come with a later slice of the port")
         if str(M.get("weights_init_encoder") or "").lower() == "imagenet":
             raise NotImplementedError("MODEL.weights_init_encoder: imagenet is not ported")
-        if int(config.DEMO.get("sequence_length_refinement") or 2) != 2:
-            raise NotImplementedError("DEMO.sequence_length_refinement: only 2 is ported")
+        self.F_ref = int(config.DEMO.get("sequence_length_refinement") or 2)
+        if self.F_ref < 2:
+            raise ValueError("DEMO.sequence_length_refinement must be at least 2")
         self.device = resolve_device(device, config)
         set_full_fp32()
         self.config = config
@@ -78,7 +87,8 @@ class OnlineAdaptation:
         L = config.LOSS
         self._bucketed_sort = (bool(L.get("knn_spatial_sort", True))
                                and bool(L.get("knn_bucket", True))
-                               and bool(L.three3d_loss))
+                               and self.engine.point_losses)
+        self._sort_cache = None  # {perm, inv, bucket, age, known}
 
     def _bucket(self, count: int, first: bool, last: int) -> int:
         """Rows of the map view the keyframe's KNN and fusion run on: an
@@ -111,25 +121,56 @@ class OnlineAdaptation:
         per_pair: List[Dict] = []
         est_poses = []
         bucket = 0
+        kf_hist = [0]  # processed keyframes (frame 0: the first prev)
+        self._sort_cache = None
+        period = int(cfg.LOSS.get("knn_sort_period", 1) or 1)
+        last_kc = None
+        regathers = seeded = 0
         self._sync()
         t_start = time.perf_counter()
         for k, (prev, frame) in enumerate(schedule):
-            pair = PairBatch(colors=torch.stack([colors[prev], colors[frame]]),
-                             gt_depths=torch.stack([gt_depths[prev], gt_depths[frame]]),
-                             intrinsics=K, poses=torch.stack([poses[prev], poses[frame]]))
+            # The last F keyframes ending at `frame`, oldest first; slots
+            # older than the history repeat the oldest keyframe.
+            hist = (kf_hist + [frame])[-self.F_ref:]
+            window = [hist[0]] * (self.F_ref - len(hist)) + hist
+            pair = self._batch(colors, gt_depths, K, poses, window)
+            fuse_batch = None if window == [prev, frame] else self._batch(
+                colors, gt_depths, K, poses, [prev, frame])
+            perm_stable = False
             if self._bucketed_sort:
                 bucket = self._bucket(global_map.count, k == 0, bucket)
-                map_index = engine.build_map_index(global_map, bucket)
+                if self._sort_cache_stale(period, bucket, global_map.count):
+                    map_index = engine.build_map_index(global_map, bucket)
+                    if period > 1 and isinstance(map_index, SortedMap):
+                        self._sort_cache = {"perm": map_index.perm, "inv": map_index.inv_perm,
+                                            "bucket": bucket, "age": 0,
+                                            "known": global_map.count}
+                else:
+                    # Between re-sorts (LOSS.knn_sort_period): the cached
+                    # permutation over the current points, one gather.
+                    sc = self._sort_cache
+                    map_index = regather_sorted(global_map.points[: sc["bucket"]].detach(),
+                                                sc["perm"], sc["inv"])
+                    sc["age"] += 1
+                    sc["known"] = max(sc["known"], global_map.count)
+                    perm_stable = True
+                    regathers += 1
             else:
                 map_index = engine.build_map_index(global_map)
-            global_map, steps, est_pose = engine.process_pair(
-                pair, global_map, map_index, fuse_prev=k == 0)
+            # Cross-keyframe seeds: the previous keyframe's final indices are
+            # positions in the sorted view, valid while its permutation is.
+            seed = last_kc if perm_stable else None
+            seeded += seed is not None
+            global_map, steps, est_pose, last_kc = engine.process_pair(
+                pair, global_map, map_index, fuse_prev=k == 0, fuse_batch=fuse_batch,
+                knn_init0=seed)
             if verbose:
                 for i, m in enumerate(steps):
                     print(f"frame {frame} refine_step {i} "
                           f"loss {float(m['total_loss']):.5f} "
                           f"abs_rel {float(m['abs_rel']):.5f} "
                           f"rmse {float(m['rmse']):.5f} a1 {float(m['a1']):.5f}")
+            kf_hist.append(frame)
             keyframes.append(frame)
             per_pair.append(steps[-1] if steps else None)
             est_poses.append(est_pose)
@@ -162,12 +203,32 @@ class OnlineAdaptation:
             "gt_kf_poses": gt_kf,
             "ate": ate,
             "rpe": rpe,
+            "regathers": regathers,
+            "seeded_keyframes": seeded,
         }
         if verbose:
             print(f"keyframes {len(keyframes)} mean abs_rel {result['mean_abs_rel']:.5f} "
                   f"map points {result['map_points']} ate {ate:.5f} rpe {rpe:.5f} "
                   f"refine steps/sec {result['steps_per_sec']:.2f}")
         return result
+
+    def _sort_cache_stale(self, period: int, bucket: int, known: int) -> bool:
+        """Whether the cached Morton permutation must be rebuilt
+        (e2eslam_tpu/engine/adaptation.py:110-129): the cache is off
+        (``period <= 1``) or empty, the bucket changed (the permutation
+        covers the old slice), it aged out, or the map count decreased since
+        the sort (the regathered view's valid prefix needs counts that never
+        shrink). ``known`` 0 means no count is known yet."""
+        sc = self._sort_cache
+        if period <= 1 or sc is None:
+            return True
+        shrunk = 0 < known < sc.get("known", 0)
+        return shrunk or bucket != sc["bucket"] or sc["age"] >= period - 1
+
+    @staticmethod
+    def _batch(colors, gt_depths, K, poses, frames) -> PairBatch:
+        return PairBatch(colors=colors[frames], gt_depths=gt_depths[frames], intrinsics=K,
+                         poses=poses[frames])
 
     def _sync(self):
         if self.device.type == "cuda":

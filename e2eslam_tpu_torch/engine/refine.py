@@ -1,17 +1,31 @@
 """The refinement engine: one PFT gradient step, and fusion of a refined pair.
 
-The default-config path of ``e2eslam_tpu/engine/refine.py``: per keyframe
-pair, R steps of parameter fine-tuning (PFT) of the depth network --
-batched depth forward, online median scaling, gt-pose view synthesis, the
-masked SSIM+L1 photometric loss and the end-to-end 3D point loss against
-the global map with the exact brute-force KNN -- then fusion of the refined
-pair into the map.
+The PFT path of ``e2eslam_tpu/engine/refine.py``: per keyframe window, R
+steps of parameter fine-tuning (PFT) of the depth network -- batched depth
+forward (indoor or monodepth2, optionally the dual-disparity blend), depth
+scaling, gt-pose view synthesis, then the loss family of
+``RefinementEngine._assemble_losses``: the photometric loss (masked,
+auto-masked, min-reprojection), the geometric, smoothness,
+depth-regularizer and sparse-supervision terms, and the end-to-end 3D point
+losses against the global map with the exact brute-force KNN (three3d or
+its ``knn_points`` alias, and the bidirectional chamfer) -- then fusion of
+the newest keyframe pair into the map.
 
-The 3D loss threads warm starts through a keyframe's steps as the JAX
-``process_pair`` does: step 0 is seeded by a strided KNN over the map's
-newest rows (``tail_seed``), steps 1..R-1 by the previous step's indices,
-and the query Morton permutation computed at step 0 is reused. Every seed
-is re-scored inside ``ops.knn``, so the search stays exact.
+The 3D losses thread warm starts through a keyframe's steps as the JAX
+``process_pair`` does: step 0 of the frame->map searches is seeded by a
+strided KNN over the map's newest rows (``tail_seed``), the chamfer's
+map->frame search by the pixel each map point projects to; steps 1..R-1
+take the previous step's indices, and the query Morton permutation computed
+at step 0 is reused. The adaptation loop may seed step 0 with the previous
+keyframe's final indices instead. Every seed is re-scored inside
+``ops.knn``, so the search stays exact.
+
+Randomness (``supervise_depth``'s sampler, the tie-break noise of
+``auto_masking`` with ``min_reprojection``) comes from one
+``torch.Generator`` on the engine's device, seeded from
+``SETTINGS.seed`` (default 1, the JAX runner's key): JAX's threefry stream
+has no torch counterpart, so those draws match the JAX package's in
+distribution only.
 
 Eager PyTorch needs no counterpart of the JAX whole-keyframe and
 whole-sequence programs; the engine is a plain per-step loop.
@@ -24,18 +38,25 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from e2eslam_tpu_torch.core.camera import inverse_intrinsics
-from e2eslam_tpu_torch.core.depth import indoor_disp_to_depth
+from e2eslam_tpu_torch.core.camera import inverse_intrinsics, normalize_intrinsics
+from e2eslam_tpu_torch.core.depth import disp_to_depth, indoor_disp_to_depth
 from e2eslam_tpu_torch.core.projection import backproject, project
 from e2eslam_tpu_torch.core.sampling import grid_sample
 from e2eslam_tpu_torch.core.se3 import se3_inverse, transform_points
 from e2eslam_tpu_torch.engine.optim import make_optimizer
 from e2eslam_tpu_torch.losses.metrics import depth_metrics
 from e2eslam_tpu_torch.losses.photometric import photometric_loss
-from e2eslam_tpu_torch.losses.points import knn_points_loss
+from e2eslam_tpu_torch.losses.points import knn_points_loss, texture_gate
+from e2eslam_tpu_torch.losses.regularizers import (
+    depth_gt_loss,
+    depth_regularizer,
+    disparity_smoothness_loss,
+    geometric_consistency_loss,
+    sparse_sampling,
+)
 from e2eslam_tpu_torch.ops.knn import knn
 from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, morton_codes, sort_map_points
-from e2eslam_tpu_torch.slam.fusion import frame_pointcloud
+from e2eslam_tpu_torch.slam.fusion import _project_pixels, frame_pointcloud
 from e2eslam_tpu_torch.slam.pointclouds import MapState
 from e2eslam_tpu_torch.slam.rgbd import build_frame
 from e2eslam_tpu_torch.slam.slam import PointFusion
@@ -44,13 +65,10 @@ Tensor = torch.Tensor
 
 TARGET = 1  # target-frame index within a window (reference convention)
 
-# Flags of the JAX engine that select code this slice of the port does not
-# carry; each must be off (falsy). Slices: ROADMAP.md, queue A.
-_UNPORTED_LOSS_FLAGS = (
-    "chamfer_distance", "knn_points", "geometric", "smoothness",
-    "depth_regularizer", "supervise_depth", "auto_masking",
-    "three3d_texture_gate", "three3d_debias",
-)
+# Invalid frame pixels of the chamfer's map->frame search sit here: far
+# outside any scene, yet small enough to keep the kernels' float32 scores
+# and boxes usable (e2eslam_tpu/engine/refine.py:812-817).
+INVALID_SENTINEL = 1e4
 
 
 class PairBatch(NamedTuple):
@@ -63,15 +81,12 @@ class PairBatch(NamedTuple):
 
 
 def validate_config(config) -> None:
-    """Refuse settings whose code paths this slice of the port lacks."""
-    L, M, A = config.LOSS, config.MODEL, config.ABLATION
-    bad = [f"LOSS.{k}" for k in _UNPORTED_LOSS_FLAGS if L.get(k)]
+    """Refuse settings whose code paths the port does not carry yet
+    (ROADMAP.md, queue A)."""
+    L, M, O = config.LOSS, config.MODEL, config.OPTIMIZATION
+    bad = []
     if str(L.get("knn_impl", "brute")) != "brute":
         bad.append(f"LOSS.knn_impl={L.get('knn_impl')!r} (only brute)")
-    if int(L.get("three3d_map_stride", 1) or 1) != 1:
-        bad.append("LOSS.three3d_map_stride != 1")
-    if int(L.get("knn_sort_period", 1) or 1) != 1:
-        bad.append("LOSS.knn_sort_period != 1 (regather_sorted)")
     if str(M.get("fusion_impl", "scatter")) != "scatter":
         bad.append("MODEL.fusion_impl (only scatter)")
     if M.get("active_window"):
@@ -79,22 +94,29 @@ def validate_config(config) -> None:
     for k in ("compact_period", "compact_voxel"):
         if M.get(k):
             bad.append(f"MODEL.{k} (compaction)")
-    if str(A.get("scaled_depth_mode", "online")) != "online":
-        bad.append("ABLATION.scaled_depth_mode (only online)")
-    if str(config.OPTIMIZATION.get("refinement", "PFT")) != "PFT":
+    if str(O.get("refinement", "PFT")) != "PFT":
         bad.append("OPTIMIZATION.refinement (only PFT)")
-    if config.OPTIMIZATION.get("fused_update"):
+    if O.get("fused_update"):
         bad.append("OPTIMIZATION.fused_update")
-    if str(M.depth_network) != "indoor":
-        bad.append("MODEL.depth_network (only indoor)")
+    if str(config.SETTINGS.get("compute_dtype", "float32")) != "float32":
+        bad.append("SETTINGS.compute_dtype (only float32)")
     if not config.DATA.get("use_gt_pose", True):
         bad.append("DATA.use_gt_pose: false (estimated-pose view synthesis)")
-    for k in ("scale_intrinsics", "dual_disparity"):
-        if A.get(k):
-            bad.append(f"ABLATION.{k}")
     if bad:
         raise NotImplementedError(
-            "not ported in this slice of e2eslam_tpu_torch: " + ", ".join(bad))
+            "not ported to e2eslam_tpu_torch yet: " + ", ".join(bad))
+
+
+def _merge_dual_disparity(left: Tensor, right: Tensor) -> Tensor:
+    """Blend the forward and flipped disparities with edge ramps. The ramp
+    runs along WIDTH, as the JAX package intends (refine.py:66-80; the
+    reference's mask ramps along height, a meshgrid quirk)."""
+    W = left.shape[2]
+    x = torch.linspace(0.0, 1.0, W, dtype=left.dtype, device=left.device).reshape(1, 1, W, 1)
+    l_mask = 1.0 - (20.0 * (x - 0.05)).clamp(0.0, 1.0)
+    r_mask = l_mask.flip(2)
+    middle = 0.5 * (left + right)
+    return r_mask * left + l_mask * right + (1.0 - l_mask - r_mask) * middle
 
 
 def _median(x: Tensor) -> Tensor:
@@ -105,15 +127,28 @@ def _median(x: Tensor) -> Tensor:
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
-def masked_point_loss(pts: Tensor, nn_pts: Tensor, w: Tensor) -> Tensor:
+def masked_point_loss(pts: Tensor, nn_pts: Tensor, w: Tensor, scale: Optional[Tensor] = None,
+                      debias: bool = False) -> Tensor:
     """``sum(w * |pts - nn|^2) / max(sum w, 1)``, the shared reduction of
-    the JAX engine's 3D losses."""
+    the JAX engine's 3D losses (``_masked_point_loss``, refine.py:115-146).
+
+    ``scale`` [N] multiplies the numerator only (the texture gate: the loss
+    shrinks where it applies instead of renormalising). ``debias``
+    (``LOSS.three3d_debias``) first subtracts the weighted mean residual
+    vector, detached: the rigid offset of a misregistered keyframe."""
     r = pts - nn_pts
-    return ((r * r).sum(dim=-1) * w).sum() / w.sum().clamp(min=1.0)
+    wsum = w.sum().clamp(min=1.0)
+    if debias:
+        r = r - ((r * w[:, None]).sum(dim=0) / wsum).detach()
+    d2 = (r * r).sum(dim=-1) * w
+    if scale is not None:
+        d2 = d2 * scale
+    return d2.sum() / wsum
 
 
 class RefinementEngine:
-    """Owns the depth network, its optimizer and the SLAM front end."""
+    """Owns the depth network, its optimizer, the random generator and the
+    SLAM front end."""
 
     def __init__(self, config, model: nn.Module, *, map_capacity: int,
                  device: torch.device):
@@ -136,79 +171,170 @@ class RefinementEngine:
                                 angle_th=float(M.angle_th), sigma=float(M.sigma))
         L = config.LOSS
         self.refinement_steps = int(config.OPTIMIZATION.refinement_steps)
-        self.warm = (self.refinement_steps > 1 and bool(L.three3d_loss)
+        self.point_losses = bool(L.three3d_loss or L.get("knn_points")
+                                 or L.get("chamfer_distance"))
+        self.warm = (self.refinement_steps > 1 and self.point_losses
                      and bool(L.get("knn_warm_start", True)))
+        seed = config.SETTINGS.get("seed")
+        self.generator = torch.Generator(device=device).manual_seed(
+            1 if seed is None else int(seed))
+        # The depth regularizer's reference: the step-0 post-scaling depth
+        # of the current keyframe (refine.py:918-925; the reference
+        # snapshots pre-scaling depth, the JAX package compares like with
+        # like).
+        self.initial_depths: Optional[Tensor] = None
 
     # ------------------------------------------------------------------
     # building blocks
     # ------------------------------------------------------------------
     def forward_depths(self, colors: Tensor) -> Tuple[Tensor, Tensor]:
-        """Batched depth forward of all frames (indoor network). Returns
-        (disp, depth)."""
-        disp = self.model(colors)
-        return disp, indoor_disp_to_depth(disp)
+        """Batched depth forward of all frames. Returns (disp, depth)."""
+        cfg = self.config
+        if cfg.ABLATION.get("dual_disparity", False):
+            # The image and its horizontal flip in one doubled batch, blended
+            # (reference train_depth.py:224-237, :333-338).
+            F = colors.shape[0]
+            d = self.model(torch.cat([colors, colors.flip(2)], dim=0))
+            disp = _merge_dual_disparity(d[:F], d[F:].flip(2))
+        else:
+            disp = self.model(colors)
+        if cfg.MODEL.depth_network == "indoor":
+            return disp, indoor_disp_to_depth(disp)
+        return disp, disp_to_depth(disp, float(cfg.DATA.min_depth), float(cfg.DATA.max_depth))
 
-    def apply_scaling(self, depth: Tensor, gt_depths: Tensor) -> Tensor:
-        """Online median scaling (reference ``online_adaption.py:295-298``)."""
+    def apply_scaling(self, depth: Tensor, gt_depths: Tensor,
+                      intrinsics: Optional[Tensor] = None) -> Tensor:
+        """Focal rescaling, then online median or constant scaling
+        (refine.py:254-284)."""
         abl = self.config.ABLATION
+        if abl.get("scale_intrinsics", False) and intrinsics is not None:
+            # CNN-SLAM-style focal rescaling (reference train_depth.py:317-325).
+            depth = depth * (intrinsics[0, 0] / float(abl.focal_pretrain))
         if not abl.get("scaled_depth", False):
             return depth
-        ms = int(abl.get("median_stride", 1) or 1)
-        return depth * (_median(gt_depths[:, ::ms, ::ms]) / _median(depth[:, ::ms, ::ms]))
+        if abl.get("scaled_depth_mode", "online") == "online":
+            # reference online_adaption.py:295-298
+            ms = int(abl.get("median_stride", 1) or 1)
+            return depth * (_median(gt_depths[:, ::ms, ::ms]) / _median(depth[:, ::ms, ::ms]))
+        depth = depth * float(abl.scaling_depth)
+        if abl.get("with_bias", False):
+            depth = depth + float(abl.get("scaling_bias", 0.0))
+        return depth
 
     def view_synthesis(self, pair: PairBatch, depth: Tensor) -> Dict:
-        """Warp each source frame into the target view (gt poses)."""
+        """Warp each source frame into the target view (gt poses); with
+        ``LOSS.geometric`` also the warped and the resampled source depth."""
         cfg = self.config
-        K = pair.intrinsics[None]
+        K = pair.intrinsics
+        if cfg.MODEL.depth_network == "monodepth2" and cfg.DATA.get("normalize_intrinsics", False):
+            K = normalize_intrinsics(K)
+        K = K[None]
         cam_points = backproject(depth[TARGET][None], inverse_intrinsics(K))
+        pad = cfg.MODEL.padding_mode
         outputs = {}
         for src in range(pair.colors.shape[0]):
             if src == TARGET:
                 continue
             T = (se3_inverse(pair.poses[src]) @ pair.poses[TARGET])[None]
-            grid, valid = project(cam_points, K, T)
-            outputs[("synthesized_frame", src)] = grid_sample(
-                pair.colors[src][None], grid,
-                padding_mode=cfg.MODEL.padding_mode, align_corners=False)
+            if cfg.LOSS.geometric:
+                grid, warped, valid = project(cam_points, K, T, return_depth=True)
+                outputs[("warped_depth", src)] = warped
+                outputs[("interpolated_depth", src)] = grid_sample(
+                    depth[src][None], grid, padding_mode=pad, align_corners=False)
+                # Reference quirk kept (refine.py:342-351): with the
+                # geometric loss on, colour is sampled with align_corners=True.
+                synth = grid_sample(pair.colors[src][None], grid, padding_mode=pad,
+                                    align_corners=True)
+            else:
+                grid, valid = project(cam_points, K, T)
+                synth = grid_sample(pair.colors[src][None], grid, padding_mode=pad,
+                                    align_corners=False)
+            outputs[("synthesized_frame", src)] = synth
             outputs[("valid_mask", src)] = valid
         return outputs
 
-    def assemble_losses(self, pair: PairBatch, depth: Tensor, outputs: Dict,
-                        map_state: Optional[MapState], map_index=None,
-                        knn_init=None, thread_knn: bool = False):
-        """Photometric + 3D point loss. Returns (loss, aux); with the 3D
-        loss on, ``aux["_knn_idx"]`` holds this step's NN indices (and the
-        query permutation when ``thread_knn``) for the next step."""
+    def _photometric(self, pair: PairBatch, outputs: Dict) -> Tensor:
+        """Masked SSIM+L1, optionally auto-masked against the identity
+        warps and reduced by the minimum over sources (refine.py:392-429)."""
         L = self.config.LOSS
         target = pair.colors[TARGET][None]
-        aux: Dict[str, Tensor] = {}
-        maps = []
-        for src in range(pair.colors.shape[0]):
-            if src == TARGET:
-                continue
-            synth = outputs[("synthesized_frame", src)]
+        sources = [i for i in range(pair.colors.shape[0]) if i != TARGET]
+
+        def loss_map(image, src):
             if L.photometric_mask:
                 mask = outputs[("valid_mask", src)]
-                maps.append(photometric_loss(synth * mask, target * mask))
-            else:
-                maps.append(photometric_loss(synth, target))
-        # One source frame per window (F = 2): the mean over it is the
-        # JAX engine's reduction whether or not min_reprojection is set.
-        optimize = torch.cat(maps, dim=-1).mean()
-        loss = optimize
-        aux["photometric"] = optimize
+                return photometric_loss(image * mask, target * mask)
+            return photometric_loss(image, target)
 
-        if L.three3d_loss and map_state is not None:
-            knn_l, knn_idx = self._three3d(pair, depth, map_state, map_index,
-                                           knn_init, thread_knn)
-            loss = loss + knn_l * float(L.three3d_loss_weight)
-            aux["three3d"] = knn_l
-            aux["_knn_idx"] = knn_idx
+        photometric = torch.cat([loss_map(outputs[("synthesized_frame", s)], s)
+                                 for s in sources], dim=-1)
+        if not L.min_reprojection:
+            photometric = photometric.mean(dim=-1, keepdim=True)
+        if L.auto_masking:
+            identity = torch.cat([loss_map(pair.colors[s][None], s) for s in sources], dim=-1)
+            if L.min_reprojection:
+                identity = identity + 1e-5 * torch.randn(
+                    identity.shape, generator=self.generator, dtype=identity.dtype,
+                    device=identity.device)
+            else:
+                identity = identity.mean(dim=-1, keepdim=True)
+            photometric = torch.cat([identity, photometric], dim=-1)
+        if photometric.shape[-1] == 1:
+            return photometric.mean()
+        return photometric.amin(dim=-1).mean()
+
+    def assemble_losses(self, pair: PairBatch, disp: Tensor, depth: Tensor, outputs: Dict,
+                        map_state: Optional[MapState], initial_depths: Tensor,
+                        map_index=None, knn_init=None, thread_knn: bool = False):
+        """The loss family of ``RefinementEngine._assemble_losses``
+        (refine.py:362-861). Returns (loss, aux); with a 3D loss on,
+        ``aux["_knn_idx"]`` holds this step's NN indices (keys ``three3d``,
+        ``ab``, ``ba``; ``qperm`` when ``thread_knn``) for the next step."""
+        L = self.config.LOSS
+        F = pair.colors.shape[0]
+        sources = [i for i in range(F) if i != TARGET]
+        aux: Dict = {}
+        loss = aux["photometric"] = self._photometric(pair, outputs)
+
+        if L.geometric:
+            geo = torch.stack([geometric_consistency_loss(
+                outputs[("warped_depth", s)], outputs[("interpolated_depth", s)],
+                outputs[("valid_mask", s)]) for s in sources]).mean()
+            loss = loss + geo * float(L.geometric_weight)
+            aux["geometric"] = geo
+        if L.smoothness:
+            # Reference quirk kept (refine.py:448-455): the disparity of frame
+            # 0 (a source), against the TARGET frame's edges.
+            d0 = disp[0][None]
+            smooth = disparity_smoothness_loss(
+                d0 / (d0.mean(dim=(1, 2), keepdim=True) + 1e-7), pair.colors[TARGET][None])
+            loss = loss + smooth * float(L.smoothness_weight)
+            aux["smoothness"] = smooth
+        if L.depth_regularizer:
+            reg = depth_regularizer(initial_depths, depth, str(L.depth_regularizer_type))
+            loss = loss + reg * float(L.depth_regularizer_weight)
+            aux["depth_reg"] = reg
+        if L.supervise_depth:
+            gt_loss = 0.0
+            for f in range(F):  # one generator draw per frame
+                sparse_gt, mask = sparse_sampling(self.generator, pair.gt_depths[f],
+                                                  float(L.sampling_prob), str(L.sampling_type))
+                gt_loss = gt_loss + depth_gt_loss(depth[f], sparse_gt, mask)
+            loss = loss + gt_loss * float(L.gt_depth_weight)
+            aux["gt_depth"] = gt_loss
+        if self.point_losses and map_state is not None:
+            terms, cache = self._point_losses(pair, depth, map_state, map_index, knn_init,
+                                              thread_knn)
+            for name, (value, weight) in terms.items():
+                loss = loss + value * weight
+                aux[name] = value
+            aux["_knn_idx"] = cache
         return loss, aux
 
-    def _three3d(self, pair, depth, map_state, map_index, knn_init, thread_knn):
-        """The end-to-end 3D point loss, brute (exact) branch
-        (refine.py:479-613, 702-724 of the JAX engine)."""
+    def _point_losses(self, pair, depth, map_state, map_index, knn_init, thread_knn):
+        """The end-to-end 3D point losses, brute (exact) branch
+        (refine.py:479-859): three3d (or ``knn_points``) frame->map, and the
+        bidirectional chamfer. Returns ({name: (value, weight)}, cache)."""
         L = self.config.LOSS
         frame = build_frame(pair.colors[TARGET], depth[TARGET], pair.intrinsics,
                             pair.poses[TARGET])
@@ -216,34 +342,88 @@ class RefinementEngine:
         stride = int(L.get("three3d_query_stride", 1))
         pts = live.points[::stride]
         msk = live.mask[::stride]
+        debias = bool(L.get("three3d_debias", False))
+        tgk = L.get("three3d_texture_gate")
+        tex = texture_gate(pair.colors[TARGET], float(tgk))[::stride].detach() if tgk else None
         if str(L.get("three3d_align", "relative")) == "relative":
             # The reference's quirk: the world-frame cloud is moved by the
             # target->source transform before meeting the world-frame map.
             T_rel = se3_inverse(pair.poses[0]) @ pair.poses[TARGET]
-            pts = transform_points(T_rel, pts)
+        else:
+            T_rel = torch.eye(4, dtype=pair.poses.dtype, device=pair.poses.device)
+        pts = transform_points(T_rel, pts)
+        # LOSS.three3d_map_stride: a strided view of the prefix-packed map
+        # holds ceil(count / stride) valid rows.
+        mstride = int(L.get("three3d_map_stride", 1) or 1)
         sorted_map = isinstance(map_index, SortedMap)
-        map_pts = (map_index.points if sorted_map else map_state.points).detach()
+        map_pts = (map_index.points if sorted_map else map_state.points)[::mstride].detach()
         count = map_state.count
+        map_count = -(-count // mstride)
         q_sg = pts.detach()
+        knn_init = knn_init or {}
         cache: Dict[str, Tensor] = {}
+        terms = {}
 
-        ki = None if knn_init is None else knn_init.get("three3d")
-        if ki is None and sorted_map and bool(L.get("knn_seed_tail", True)):
-            ki = self._tail_seed(q_sg, map_state, map_index)
-        qp = None
-        if thread_knn:
-            qp = None if knn_init is None else knn_init.get("qperm")
-            if qp is None:
-                valid = torch.ones(q_sg.shape[0], dtype=torch.bool, device=q_sg.device)
-                qp = torch.argsort(morton_codes(q_sg, valid), stable=True)
-            cache["qperm"] = qp
-        _, idx = knn_points_loss(map_pts, pts, n_gt=count, init_idx=ki, q_perm=qp)
-        cache["three3d"] = idx
-        # Empty-map gate: the reference skips the 3D loss on the first
+        def seed_ab(key):
+            ki = knn_init.get(key)
+            if (ki is None and sorted_map and mstride == 1
+                    and bool(L.get("knn_seed_tail", True))):
+                ki = self._tail_seed(q_sg, map_state, map_index)
+            return ki
+
+        def qperm():
+            if not thread_knn:
+                return None
+            if "qperm" not in cache:
+                qp = knn_init.get("qperm")
+                if qp is None:
+                    valid = torch.ones(q_sg.shape[0], dtype=torch.bool, device=q_sg.device)
+                    qp = torch.argsort(morton_codes(q_sg, valid), stable=True)
+                cache["qperm"] = qp
+            return cache["qperm"]
+
+        # Empty-map gate: the reference skips the 3D losses on the first
         # keyframe; the KNN then returns index 0 (finite) and the gate
         # zeroes the loss.
         gate = 1.0 if count > 0 else 0.0
-        return gate * masked_point_loss(pts, map_pts[idx], msk), cache
+        idx_ab = None
+        if L.three3d_loss or L.get("knn_points"):
+            _, idx_ab = knn_points_loss(map_pts, pts, n_gt=map_count,
+                                        init_idx=seed_ab("three3d"), q_perm=qperm())
+            cache["three3d"] = idx_ab
+            knn_l = gate * masked_point_loss(pts, map_pts[idx_ab], msk, scale=tex,
+                                             debias=debias)
+            w = L.three3d_loss_weight if L.three3d_loss else L.knn_points_weight
+            terms["three3d"] = (knn_l, float(w))
+        if L.get("chamfer_distance"):
+            # The chamfer keeps reference semantics: no texture gate, no
+            # debias. a->b reuses the three3d search when it ran (the same
+            # clouds).
+            if idx_ab is None:
+                idx_ab = knn(q_sg, map_pts, map_count, init_idx=seed_ab("ab"),
+                             q_perm=qperm())[1]
+            cache["ab"] = idx_ab
+            d_ab = masked_point_loss(pts, map_pts[idx_ab], msk)
+            # b->a: the map's valid rows query the frame, whose invalid
+            # pixels sit at the sentinel.
+            pts_safe = torch.where(msk[:, None] > 0, pts, torch.full_like(pts, INVALID_SENTINEL))
+            ki_ba = knn_init.get("ba")
+            if ki_ba is None and stride == 1:
+                # Projective seeds: each map row's candidate is the pixel it
+                # projects to; the refs are T_rel-shifted, so the camera is
+                # T_rel o frame.pose (refine.py:822-844).
+                H, W = frame.depth.shape[:2]
+                ki_ba, _ = _project_pixels(map_pts, T_rel @ frame.pose, frame.intrinsics, H, W)
+            idx_ba = knn(map_pts, pts_safe.detach(), nq=map_count, init_idx=ki_ba)[1]
+            cache["ba"] = idx_ba
+            mvalid = (torch.arange(map_pts.shape[0], device=map_pts.device)
+                      < map_count).to(pts.dtype)
+            # index_select: its backward is one index_add over the frame's
+            # rows; advanced indexing's backward sorts the map-sized index
+            # array (about 160 ms a step on an H100 at 2.6M map rows).
+            d_ba = masked_point_loss(map_pts, pts_safe.index_select(0, idx_ba.long()), mvalid)
+            terms["chamfer"] = (gate * (d_ab + d_ba), 0.5 * float(L.chamfer_weight))
+        return terms, cache
 
     def _tail_seed(self, q: Tensor, map_state: MapState, map_index: SortedMap) -> Tensor:
         """Step-0 warm-start candidates from the map's newest rows: a KNN
@@ -264,17 +444,23 @@ class RefinementEngine:
     # the PFT step, fusion, the keyframe
     # ------------------------------------------------------------------
     def refine_step(self, pair: PairBatch, map_state: Optional[MapState],
-                    map_index=None, knn_init=None, thread_knn: bool = False):
-        """One PFT step: loss, backward, Adam and the schedule.
+                    map_index=None, knn_init=None, thread_knn: bool = False, step: int = 0):
+        """One PFT step: loss, backward, Adam and the schedule. ``step`` is
+        the step's index within its keyframe (step 0 snapshots the depth
+        regularizer's reference).
 
         Returns (metrics, knn cache). Metrics are device tensors of the
         depth seen by this step's loss (before the update)."""
         self.optimizer.zero_grad(set_to_none=True)
-        _, depth = self.forward_depths(pair.colors)
-        depth = self.apply_scaling(depth, pair.gt_depths)
+        disp, depth = self.forward_depths(pair.colors)
+        depth = self.apply_scaling(depth, pair.gt_depths, pair.intrinsics)
+        if step == 0:
+            self.initial_depths = depth.detach()
+        elif self.initial_depths is None:
+            self.initial_depths = torch.zeros_like(depth)  # the JAX state's zeros
         outputs = self.view_synthesis(pair, depth)
-        loss, aux = self.assemble_losses(pair, depth, outputs, map_state, map_index,
-                                         knn_init, thread_knn)
+        loss, aux = self.assemble_losses(pair, disp, depth, outputs, map_state,
+                                         self.initial_depths, map_index, knn_init, thread_knn)
         loss.backward()
         self.optimizer.step()
         self.scheduler.step()
@@ -288,11 +474,11 @@ class RefinementEngine:
 
     @torch.no_grad()
     def fuse_pair(self, pair: PairBatch, map_state: MapState, *, fuse_prev: bool):
-        """Fuse a refined pair into the map (reference
+        """Fuse a refined pair (prev, live) into the map (reference
         ``create_refined_pointcloud``, online_adaption.py:329-366). Returns
         (map, estimated live pose)."""
         _, depth = self.forward_depths(pair.colors)
-        depth = self.apply_scaling(depth, pair.gt_depths)
+        depth = self.apply_scaling(depth, pair.gt_depths, pair.intrinsics)
         prev = build_frame(pair.colors[0], depth[0], pair.intrinsics, pair.poses[0])
         if fuse_prev:
             map_state = self.slam._update_map(map_state, prev)
@@ -305,33 +491,36 @@ class RefinementEngine:
         """A Morton-sorted view of the map's first ``bucket`` rows (all
         valid rows live there) for the brute KNN, or None when the sort is
         off or no 3D loss runs."""
-        L = self.config.LOSS
-        if not (L.three3d_loss and bool(L.get("knn_spatial_sort", True))):
+        if not (self.point_losses and bool(self.config.LOSS.get("knn_spatial_sort", True))):
             return None
         pts = map_state.points.detach()
         if bucket is not None:
             pts = pts[:bucket]
         return sort_map_points(pts, map_state.count)
 
-    def process_pair(self, pair: PairBatch, map_state: MapState, map_index=None,
-                     *, fuse_prev: bool) -> Tuple[MapState, List[Dict], Tensor]:
-        """A keyframe: R refinement steps, then fusion.
+    def process_pair(self, pair: PairBatch, map_state: MapState, map_index=None, *,
+                     fuse_prev: bool, fuse_batch: Optional[PairBatch] = None,
+                     knn_init0=None) -> Tuple[MapState, List[Dict], Tensor, Optional[Dict]]:
+        """A keyframe: R refinement steps on the window ``pair``, then fusion
+        of ``fuse_batch`` (the newest pair (prev, frame); default ``pair``).
 
         With a bucketed sorted view (``map_index`` shorter than the buffer)
         the steps and the fusion run on the buffer's first rows, which hold
-        every valid row. Returns (map, per-step metrics, estimated pose).
+        every valid row. ``knn_init0`` (the previous keyframe's final KNN
+        cache) seeds step 0 when the sorted view's permutation is unchanged.
+        Returns (map, per-step metrics, estimated pose, final KNN cache).
         """
         view = map_state
         if isinstance(map_index, SortedMap) and map_index.points.shape[0] < map_state.data.shape[0]:
             view = MapState(data=map_state.data[: map_index.points.shape[0]],
                             count=map_state.count)
         steps = []
-        kc = None
-        for _ in range(self.refinement_steps):
-            metrics, cache = self.refine_step(pair, view, map_index,
-                                              knn_init=kc, thread_knn=self.warm)
+        kc = knn_init0 if self.warm else None
+        for i in range(self.refinement_steps):
+            metrics, cache = self.refine_step(pair, view, map_index, knn_init=kc,
+                                              thread_knn=self.warm, step=i)
             if self.warm:
                 kc = cache
             steps.append(metrics)
-        view, est_pose = self.fuse_pair(pair, view, fuse_prev=fuse_prev)
-        return MapState(data=map_state.data, count=view.count), steps, est_pose
+        view, est_pose = self.fuse_pair(fuse_batch or pair, view, fuse_prev=fuse_prev)
+        return MapState(data=map_state.data, count=view.count), steps, est_pose, kc

@@ -11,6 +11,9 @@ port needs. Inputs are nested dicts of numpy arrays (``params`` and
   ``running_mean/running_var``
   decoder ``upconv_{i}_{j}`` -> ``decoder.{(4 - i) * 2 + j}.conv.conv``,
   ``dispconv_{s}`` -> ``decoder.{10 + s}.conv``
+
+The indoor and the monodepth2 networks share these keys (their decoders
+differ only in the disparity heads' activation and count).
 """
 
 from __future__ import annotations
@@ -81,7 +84,8 @@ def _flatten(tree: Mapping, prefix=()):
 
 def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``params``/``batch_stats`` trees -> a ``state_dict`` of the port's
-    ``DispResNetIndoor`` (without the ``num_batches_tracked`` counters)."""
+    ``DispResNetIndoor`` or ``MonodepthNet`` (without the
+    ``num_batches_tracked`` counters)."""
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in (("params", params), ("batch_stats", batch_stats or {})):
         for path, value in _flatten(tree):

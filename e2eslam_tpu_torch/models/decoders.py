@@ -1,17 +1,19 @@
-"""The indoor U-Net depth decoder (NCHW inside).
+"""The U-Net depth decoders (NCHW inside).
 
-The reference's indoor decoder (``depth_estimation/networks.py:241-292``):
-per level ``upconv0 -> nearest 2x upsample -> concat skip -> upconv1``,
-decoder channels ``[16, 32, 64, 128, 256]``, reflection-padded 3x3 convs +
-ELU, disparity ``10 * sigmoid + 0.01`` at scale 0 only. The decoder is a
-``ModuleList`` indexed as the reference's: ``upconv_{i}_{j}`` at
-``(4 - i) * 2 + j`` and ``dispconv_{s}`` at ``10 + s`` (all four heads
-exist, as in the reference checkpoints; only scale 0 runs).
+The reference's decoders (``depth_estimation/networks.py:107-154`` and
+``:241-292``): per level ``upconv0 -> nearest 2x upsample -> concat skip ->
+upconv1``, decoder channels ``[16, 32, 64, 128, 256]``, reflection-padded
+3x3 convs + ELU. The indoor decoder's disparity is ``10 * sigmoid + 0.01``
+at scale 0 only; the monodepth2 decoder's is a sigmoid at every scale of
+``DATA.scales``. Each decoder is a ``ModuleList`` indexed as the
+reference's: ``upconv_{i}_{j}`` at ``(4 - i) * 2 + j`` and ``dispconv_{s}``
+at ``10 + s`` (the indoor decoder has all four heads, as in the reference
+checkpoints; only scale 0 runs).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -46,13 +48,17 @@ class ConvBlock(nn.Module):
         return self.nonlin(self.conv(x))
 
 
-class IndoorDepthDecoder(nn.ModuleList):
-    """``alpha * sigmoid + beta`` disparity at scale 0 (alpha 10, beta 0.01)."""
+class _UNetDecoder(nn.ModuleList):
+    """The U-Net both decoders share (``e2eslam_tpu/models/decoders.py:65``):
+    ``upconv_{i}_{j}`` at index ``(4 - i) * 2 + j`` and one disparity head
+    per scale of ``head_scales`` from index 10 (the reference's ``ModuleList``
+    order). ``forward`` returns ``{scale: disparity NCHW}`` for ``scales``
+    (default: every scale of ``emit_scales``), computing only those heads."""
 
-    alpha = 10.0
-    beta = 0.01
+    emit_scales: Sequence[int] = (0,)
 
-    def __init__(self, num_ch_enc: Sequence[int], use_skips: bool = True):
+    def __init__(self, num_ch_enc: Sequence[int], head_scales: Sequence[int],
+                 use_skips: bool = True):
         modules: List[nn.Module] = []
         for i in range(4, -1, -1):
             cin = num_ch_enc[-1] if i == 4 else DECODER_CHANNELS[i + 1]
@@ -61,12 +67,18 @@ class IndoorDepthDecoder(nn.ModuleList):
             if use_skips and i > 0:
                 cin += num_ch_enc[i - 1]
             modules.append(ConvBlock(cin, DECODER_CHANNELS[i]))
-        for s in range(4):
+        for s in head_scales:
             modules.append(Conv3x3(DECODER_CHANNELS[s], 1))
         super().__init__(modules)
         self.use_skips = use_skips
+        self.head_scales = tuple(int(s) for s in head_scales)
 
-    def forward(self, features: Sequence[Tensor]) -> Tensor:
+    def head(self, x: Tensor) -> Tensor:
+        raise NotImplementedError
+
+    def forward(self, features: Sequence[Tensor], scales=None) -> Dict[int, Tensor]:
+        scales = self.emit_scales if scales is None else scales
+        outputs: Dict[int, Tensor] = {}
         x = features[-1]
         for i in range(4, -1, -1):
             x = self[(4 - i) * 2](x)
@@ -74,4 +86,38 @@ class IndoorDepthDecoder(nn.ModuleList):
             if self.use_skips and i > 0:
                 x = torch.cat([x, features[i - 1]], dim=1)
             x = self[(4 - i) * 2 + 1](x)
-        return self.alpha * torch.sigmoid(self[10](x)) + self.beta
+            if i in scales and i in self.head_scales:
+                outputs[i] = self.head(self[10 + self.head_scales.index(i)](x))
+        return outputs
+
+
+class IndoorDepthDecoder(_UNetDecoder):
+    """``alpha * sigmoid + beta`` disparity at scale 0 (alpha 10, beta 0.01);
+    all four heads exist, as in the reference checkpoints."""
+
+    alpha = 10.0
+    beta = 0.01
+
+    def __init__(self, num_ch_enc: Sequence[int], use_skips: bool = True):
+        super().__init__(num_ch_enc, (0, 1, 2, 3), use_skips)
+
+    def head(self, x: Tensor) -> Tensor:
+        return self.alpha * torch.sigmoid(x) + self.beta
+
+
+class DepthDecoder(_UNetDecoder):
+    """The monodepth2 decoder: a sigmoid disparity head at every scale of
+    ``scales`` (``DATA.scales``), each emitted."""
+
+    def __init__(self, num_ch_enc: Sequence[int], scales: Sequence[int] = (0, 1, 2, 3),
+                 use_skips: bool = True):
+        scales = tuple(int(s) for s in scales)
+        if scales != tuple(range(len(scales))):
+            # The weight bridge maps dispconv_{s} to index 10 + s, so the
+            # heads must be the scales 0..n-1 in order.
+            raise ValueError(f"DATA.scales must be 0..n-1 in order, got {list(scales)}")
+        super().__init__(num_ch_enc, scales, use_skips)
+        self.emit_scales = scales
+
+    def head(self, x: Tensor) -> Tensor:
+        return torch.sigmoid(x)

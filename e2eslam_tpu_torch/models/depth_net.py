@@ -1,8 +1,11 @@
-"""The indoor depth network (``MODEL.depth_network: indoor``).
+"""The depth networks (``MODEL.depth_network``).
 
-``DispResNetIndoor`` (reference ``networks.py:224-238``): ResNet encoder +
-indoor decoder. Images enter NHWC ``[B, H, W, 3]`` in [0, 1] and the scale-0
-disparity leaves NHWC ``[B, H, W, 1]``; the convolutions run NCHW inside.
+``DispResNetIndoor`` (``indoor``, reference ``networks.py:224-238``): ResNet
+encoder + indoor decoder. ``MonodepthNet`` (``monodepth2``, the reference's
+encoder and depth decoder pair, ``online_adaption.py:129-141``): ResNet
+encoder + monodepth2 decoder. Images enter NHWC ``[B, H, W, 3]`` in [0, 1]
+and the scale-0 disparity leaves NHWC ``[B, H, W, 1]`` (the decoders return
+every scale they emit); the convolutions run NCHW inside.
 Batch norm always runs in inference mode (the refinement freezes it, and
 the JAX forward passes ``train=False``): the model is put in ``eval()`` at
 construction and ``train()`` keeps it there.
@@ -11,23 +14,25 @@ construction and ``train()`` keeps it there.
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 from torch import nn
 
-from e2eslam_tpu_torch.models.decoders import IndoorDepthDecoder
+from e2eslam_tpu_torch.models.decoders import DepthDecoder, IndoorDepthDecoder
 from e2eslam_tpu_torch.models.resnet import ResnetEncoder
 
 Tensor = torch.Tensor
 
 
-class DispResNetIndoor(nn.Module):
-    """ResNet encoder + indoor decoder; NHWC in, NHWC disparity out."""
+class _EncoderDecoder(nn.Module):
+    """A ResNet encoder and a U-Net decoder; NHWC in, the scale-0 NHWC
+    disparity out (only that head runs)."""
 
-    def __init__(self, num_layers: int = 18):
+    def __init__(self, encoder: nn.Module, decoder: nn.Module):
         super().__init__()
-        self.encoder = ResnetEncoder(num_layers)
-        self.decoder = IndoorDepthDecoder(self.encoder.num_ch_enc)
+        self.encoder = encoder
+        self.decoder = decoder
         self.eval()
 
     def train(self, mode: bool = True):
@@ -36,7 +41,23 @@ class DispResNetIndoor(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         features = self.encoder(x.permute(0, 3, 1, 2))
-        return self.decoder(features).permute(0, 2, 3, 1)
+        return self.decoder(features, scales=(0,))[0].permute(0, 2, 3, 1)
+
+
+class DispResNetIndoor(_EncoderDecoder):
+    """ResNet encoder + indoor decoder (``10 * sigmoid + 0.01``)."""
+
+    def __init__(self, num_layers: int = 18):
+        encoder = ResnetEncoder(num_layers)
+        super().__init__(encoder, IndoorDepthDecoder(encoder.num_ch_enc))
+
+
+class MonodepthNet(_EncoderDecoder):
+    """ResNet encoder + monodepth2 decoder (sigmoid disparity)."""
+
+    def __init__(self, num_layers: int = 18, scales: Sequence[int] = (0, 1, 2, 3)):
+        encoder = ResnetEncoder(num_layers)
+        super().__init__(encoder, DepthDecoder(encoder.num_ch_enc, scales))
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -64,20 +85,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.running_var.fill_(1.0)
 
 
-def make_depth_model(config, *, seed: int = 0) -> DispResNetIndoor:
+def make_depth_model(config, *, seed: int = 0) -> nn.Module:
     """Build the network ``MODEL.depth_network`` selects, initialised from
     a seeded generator (on the CPU, so every device gets the same weights)."""
     kind = config.MODEL.depth_network
-    if kind != "indoor":
-        raise NotImplementedError(
-            f"MODEL.depth_network {kind!r}: only 'indoor' is ported; "
-            "MonodepthNet comes with a later slice of the port"
-        )
-    if str(config.SETTINGS.get("compute_dtype", "float32")) != "float32":
-        raise NotImplementedError(
-            "SETTINGS.compute_dtype: only float32 is ported; the bf16 "
-            "flagship path comes with a later slice of the port"
-        )
-    model = DispResNetIndoor(num_layers=int(config.MODEL.num_layers))
+    if kind not in ("indoor", "monodepth2"):
+        raise ValueError(f"{kind} is not a valid depth network option")
+    if kind == "indoor":
+        model = DispResNetIndoor(num_layers=int(config.MODEL.num_layers))
+    else:
+        model = MonodepthNet(num_layers=int(config.MODEL.num_layers),
+                             scales=tuple(config.DATA.scales))
     init_weights(model, torch.Generator().manual_seed(seed))
     return model

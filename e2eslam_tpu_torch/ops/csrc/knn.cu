@@ -501,8 +501,19 @@ __device__ void walk(const WalkArgs& A) {
     List L{qtile, list_len<K>(A, qtile), 0};
     const int splits = min(A.max_splits, max(1, (L.n + A.split_min - 1) / A.split_min));
     if (share >= splits) continue;
+    const int group = qtile * gpt + g % gpt;
+    if (group * 32 * QPT >= A.nq) {
+      // No valid query (a map view longer than the map, when the map
+      // queries the frame): share 0 writes the seeds, nothing is walked.
+      if (share == 0)
+        for (int i = 0; i < QPT; ++i) {
+          const int row = group * 32 * QPT + 32 * i + threadIdx.x;
+          A.out_s[row] = A.s0 ? A.s0[row] : NEG_BIAS, A.out_i[row] = A.i0 ? A.i0[row] : 0;
+        }
+      continue;
+    }
     if (K == kResident) L.first = first_subtile(A, qtile, L.n);
-    walk_item<K>(A, stage, item, L, qtile * gpt + g % gpt, share, splits);
+    walk_item<K>(A, stage, item, L, group, share, splits);
   }
 }
 

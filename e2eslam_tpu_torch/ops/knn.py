@@ -429,6 +429,29 @@ def _pad_rows(x: Tensor, n: int, value: float = 0.0) -> Tensor:
     return torch.cat([x, pad], dim=0)
 
 
+def cand_table(q4: Tensor, s0: Tensor, r_pad: Tensor, nq: int, nr: int, rt: int):
+    """The candidate kernel's table for a warm call: per query tile, every
+    valid ref tile of ``rt`` rows whose box gap is below the tile's seeded
+    worst-best distance, best first. The ulp guard admits borderline tiles
+    the kernel's own bound might still visit. Returns (ref tile boxes
+    ``[nrt, 8]``, table ``[n_qt, width]`` int32, counts ``[n_qt]`` int32)."""
+    nq_pad, n_qt = q4.shape[0], q4.shape[0] // QT
+    q2p = (q4 * q4).sum(dim=1) - 1.0
+    col = torch.arange(nq_pad, device=q4.device)
+    d2_0 = torch.where(col < nq, q2p - 2.0 * s0, torch.full_like(q2p, -float("inf")))
+    wb0 = d2_0.view(n_qt, QT).amax(dim=1)
+    rbb = _tile_boxes(r_pad, rt)
+    width = max(1, min(rbb.shape[0], -(-nr // rt)))
+    lb2 = _box_gap2(_tile_boxes(q4, QT), rbb[:width])
+    tile_valid = torch.arange(width, device=q4.device) * rt < nr
+    lb2 = torch.where(tile_valid[None, :], lb2, torch.full_like(lb2, float("inf")))
+    is_cand = lb2 < (wb0 * (1.0 + 1e-6) + 1e-9)[:, None]
+    counts = is_cand.sum(dim=1).to(torch.int32)
+    order = torch.argsort(torch.where(is_cand, lb2, torch.full_like(lb2, float("inf"))),
+                          dim=1, stable=True).to(torch.int32)
+    return rbb, order.contiguous(), counts
+
+
 def knn(query: Tensor, ref: Tensor, nr=None, nq=None, init_idx=None,
         q_perm=None) -> Tuple[Tensor, Tensor]:
     """Top-1 KNN: for each query point, its nearest reference point.
@@ -466,7 +489,6 @@ def knn(query: Tensor, ref: Tensor, nr=None, nq=None, init_idx=None,
     # 320), which bounds the table's size; any other call takes the resident
     # or the dense kernel.
     rt_c = min(RT_CAND, RT)
-    nrt_c = nr_pad // rt_c
     warm = init_idx is not None
     n_qt = nq_pad // QT
     resident_fits = nr_pad <= RES_MAX_ROWS and nr_pad % min(ST, RT) == 0
@@ -499,25 +521,8 @@ def knn(query: Tensor, ref: Tensor, nr=None, nq=None, init_idx=None,
         i0 = _pad_rows(torch.where(ok, ii, torch.zeros_like(ii)).to(torch.int32), nq_pad)
 
     if use_cand:
-        # Per query tile, every valid ref tile whose box gap is below the
-        # tile's seeded worst-best distance, best first. The ulp guard admits
-        # borderline tiles the kernel's own bound might still visit.
-        q2p = (q4 * q4).sum(dim=1) - 1.0
-        col = torch.arange(nq_pad, device=dev)
-        d2_0 = torch.where(col < nq, q2p - 2.0 * s0, torch.full_like(q2p, -float("inf")))
-        wb0 = d2_0.view(n_qt, QT).amax(dim=1)
-        rbb_c = _tile_boxes(r_pad, rt_c)
-        width = max(1, min(nrt_c, -(-nr // rt_c)))
-        lb2 = _box_gap2(_tile_boxes(q4, QT), rbb_c[:width])
-        tile_valid = torch.arange(width, device=dev) * rt_c < nr
-        lb2 = torch.where(tile_valid[None, :], lb2, torch.full_like(lb2, float("inf")))
-        thresh = wb0 * (1.0 + 1e-6) + 1e-9
-        is_cand = lb2 < thresh[:, None]
-        counts = is_cand.sum(dim=1).to(torch.int32)
-        order = torch.argsort(torch.where(is_cand, lb2, torch.full_like(lb2, float("inf"))),
-                              dim=1, stable=True).to(torch.int32)
-        best_s, best_i = cand_kernel(q4, r4, rbb_c, s0, i0, order.contiguous(), counts,
-                                     nq, nr, rt_c)
+        rbb_c, order, counts = cand_table(q4, s0, r_pad, nq, nr, rt_c)
+        best_s, best_i = cand_kernel(q4, r4, rbb_c, s0, i0, order, counts, nq, nr, rt_c)
     elif resident_fits:
         # The resident kernel when the whole ref set is small, else dense:
         # one box per chunk the kernel stages (the plain version takes one

@@ -68,3 +68,18 @@ def sort_map_points(points: Tensor, count: int) -> SortedMap:
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(n, device=points.device)
     return SortedMap(points=points[perm], perm=perm, inv_perm=inv)
+
+
+def regather_sorted(points: Tensor, perm: Tensor, inv_perm: Tensor) -> SortedMap:
+    """Refresh a sorted view through a stale permutation: one gather, no
+    argsort (``LOSS.knn_sort_period`` > 1, between re-sorts).
+
+    The sort is stable and keys invalid rows to the largest code, so the
+    permutation's tail is the identity over the rows invalid at sort time:
+    rows appended since then land in the view's tail at their own
+    positions, in append order, and the valid rows still form the view's
+    prefix ``[0, count)`` as long as the count has not decreased. ``perm``
+    and ``inv_perm`` are unchanged, so index translation stays exact; only
+    the pruning loses (the new rows are not Morton-placed).
+    """
+    return SortedMap(points=points[perm], perm=perm, inv_perm=inv_perm)

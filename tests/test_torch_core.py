@@ -5,6 +5,8 @@ the two sides round products in different orders). Projected pixel
 coordinates and grid gradients carry the image's pixel scale (W/2 per unit
 of the [-1, 1] grid), hence 1e-4 and 1e-3 absolute there."""
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,8 @@ unique; where they differ, the two picks' float64 distances differ by that
 bound at most.
 """
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import numpy as np
 import pytest
 import torch
@@ -294,3 +296,87 @@ def test_warm_knn_makes_no_host_synchronisation(card, with_perm):
         torch.cuda.set_sync_debug_mode(0)
     assert [k.launches - b for k, b in zip(K.KERNELS, before)] == [0, 1, 0]
     _assert_near_oracle(qc, rc, d, i, nr)
+
+
+def _map_to_frame(dev, n_qt=2100, H=256, W=320):
+    """The chamfer's map->frame call: Morton-sorted points on the walls of a
+    4 x 3 x 5 m box query the frame one camera inside it sees (H x W pixels,
+    one in ten invalid, at the 1e4 sentinel), seeded by the pixel each map
+    point projects to, half of the seeds none."""
+    from e2eslam_tpu_torch.ops.spatial_sort import sort_map_points
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    box = torch.tensor([4.0, 3.0, 5.0], device=dev)
+    cam = torch.tensor([2.0, 1.5, 0.5], device=dev)
+    f = 0.8 * W
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32), indexing="ij")
+    rays = torch.stack([(xs - W / 2) / f, (ys - H / 2) / f, torch.ones_like(xs)], -1).reshape(-1, 3)
+    exits = torch.where(rays > 0, (box - cam) / rays, torch.where(rays < 0, -cam / rays,
+                                                                   torch.full_like(rays, 1e9)))
+    frame = cam + rays * exits.amin(1, keepdim=True)
+    frame[torch.rand(H * W, generator=g, device=dev) < 0.1] = 1e4
+    n = n_qt * K.QT
+    p = torch.rand(n, 3, generator=g, device=dev) * box
+    axis = torch.randint(0, 3, (n,), generator=g, device=dev)
+    side = torch.randint(0, 2, (n,), generator=g, device=dev).float()
+    p[torch.arange(n, device=dev), axis] = side * box[axis]
+    pts = sort_map_points(p, n).points
+    rel = pts - cam
+    z = rel[:, 2].clamp(min=1e-3)
+    u = (rel[:, 0] / z * f + W / 2).round().long().clamp(0, W - 1)
+    v = (rel[:, 1] / z * f + H / 2).round().long().clamp(0, H - 1)
+    seeds = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, v * W + u, -1)
+    return pts, frame, seeds
+
+
+def _resident_args(q, r, seeds, nq):
+    """The resident kernel's arguments, as the dispatcher builds them."""
+    nr = r.shape[0]
+    q4 = torch.cat([q, torch.ones_like(q[:, :1])], 1).contiguous()
+    r4 = torch.cat([r, -0.5 * (r * r).sum(1, keepdim=True)], 1).contiguous()
+    ok = seeds >= 0
+    nn0 = r[seeds.clamp(min=0)]
+    s0 = torch.where(ok, (q * nn0).sum(1) - 0.5 * (nn0 * nn0).sum(1), K.NEG).contiguous()
+    i0 = torch.where(ok, seeds, 0).int().contiguous()
+    rbb = K._tile_boxes(r, min(K.walk_config()["chunk"], K.ST))
+    return q4, r4, rbb, s0, i0, nq, nr, K.ST
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq_cut", [100, None])
+def test_resident_kernel_at_the_map_to_frame_shape(card, nq_cut):
+    """2,100 query tiles of map points against 81,920 frame refs: the kernel
+    agrees with its plain version (run 64 query tiles at a time: a query
+    tile's list depends on that tile alone) on the valid rows, with ``nq``
+    inside the last tile, or ``nq = 0`` (the first keyframe's empty map),
+    where every row keeps its seed and no pair is scored."""
+    q, r, seeds = _map_to_frame(card)
+    nq = q.shape[0] - nq_cut if nq_cut else 0
+    args = _resident_args(q, r, seeds, nq)
+    before = K.resident_kernel.launches
+    s_k, i_k = K.resident_kernel(*args)
+    torch.cuda.synchronize()
+    assert K.resident_kernel.launches == before + 1
+    if nq == 0:
+        assert torch.equal(s_k, args[3]) and torch.equal(i_k, args[4])
+    else:
+        step = 64 * K.QT
+        parts = [K.resident_plain(args[0][s:s + step], args[1], args[2], args[3][s:s + step],
+                                  args[4][s:s + step], min(step, nq - s), args[6], K.ST)
+                 for s in range(0, q.shape[0], step)]
+        s_p, i_p = (torch.cat(t) for t in zip(*parts))
+        _assert_same_nn(args[0], args[1], s_k, i_k, s_p, i_p, nq)
+        assert bool((r[i_k[:nq].long(), 0] < 100).all())  # no valid query picks a sentinel
+    visits = torch.zeros(K.walk_items_max(q.shape[0] // K.QT), 3, dtype=torch.int64,
+                         device=card)
+    K.resident_kernel(*args, visits=visits)
+    rows, pairs, repeated = visits.sum(0).tolist()
+    assert pairs - repeated <= max(nq, 0) * r.shape[0]
+    assert (pairs > 0) == (nq > 0)
+    # Through the dispatcher, a warm call of 81,920 refs takes the resident kernel.
+    before = [k.launches for k in K.KERNELS]
+    d, i = K.knn(q, r, nq=nq, init_idx=seeds)
+    assert [k.launches - b for k, b in zip(K.KERNELS, before)] == [0, 0, 1]
+    if nq:
+        assert torch.equal(i[:nq], i_k[:nq])

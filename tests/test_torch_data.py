@@ -2,6 +2,8 @@
 synthetic frames, depths, intrinsics and poses are byte-identical (both
 sides run the same numpy code), and the YAML configs load equal."""
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import glob
 import os
 

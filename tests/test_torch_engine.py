@@ -19,6 +19,8 @@ Tolerances:
     and the map size to 1%.
 """
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,10 +167,24 @@ def test_online_adaptation_matches_jax(sequence_length):
 def test_unported_settings_are_refused():
     from e2eslam_tpu_torch.engine.refine import validate_config
 
-    for key in ("LOSS.chamfer_distance", "LOSS.geometric", "MODEL.compact_period"):
+    refused = {"LOSS.knn_impl": "voxel", "MODEL.fusion_impl": "index",
+               "MODEL.active_window": 4096, "MODEL.compact_period": 4,
+               "MODEL.compact_voxel": 0.01, "OPTIMIZATION.refinement": "OFT",
+               "OPTIMIZATION.fused_update": True, "SETTINGS.compute_dtype": "bfloat16",
+               "DATA.use_gt_pose": False}
+    for key, value in refused.items():
         with pytest.raises(NotImplementedError):
-            validate_config(_cfg(load_yaml, default_config_path(), **{key: True}))
-    validate_config(_cfg(load_yaml, default_config_path()))
+            validate_config(_cfg(load_yaml, default_config_path(), **{key: value}))
+    ported = {"LOSS.chamfer_distance": True, "LOSS.knn_points": True, "LOSS.geometric": True,
+              "LOSS.smoothness": True, "LOSS.depth_regularizer": True,
+              "LOSS.supervise_depth": True, "LOSS.auto_masking": True,
+              "LOSS.min_reprojection": True, "LOSS.three3d_texture_gate": 600.0,
+              "LOSS.three3d_debias": True, "LOSS.three3d_align": "world",
+              "LOSS.three3d_map_stride": 2, "LOSS.knn_sort_period": 4,
+              "MODEL.depth_network": "monodepth2", "ABLATION.dual_disparity": True,
+              "ABLATION.scale_intrinsics": True, "ABLATION.scaled_depth_mode": "constant",
+              "DEMO.sequence_length_refinement": 3}
+    validate_config(_cfg(load_yaml, default_config_path(), **ported))
 
 
 @pytest.mark.parametrize("quantum", [8192])

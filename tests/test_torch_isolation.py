@@ -2,6 +2,8 @@
 ``chip_smoke.py`` imports JAX or the JAX package, and the entry points run
 on CUDA unless asked for the CPU -- without a card they raise."""
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import ast
 import os
 import pkgutil

@@ -10,6 +10,8 @@ must be equal wherever the nearest neighbour is unique; where they differ,
 both picks must be equally near (a tie).
 """
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import sys
 
 import jax.numpy as jnp

@@ -6,6 +6,8 @@ the 3D point loss sums ~1e3 squared residuals, 1e-5 relative. Gradients
 of the point loss: 1e-5 relative, 1e-6 absolute.
 """
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,8 @@ algorithms): 1e-4 relative, 1e-5 absolute. TF32 plays no part on the CPU
 (the entry points switch it off on CUDA, ``device.set_full_fp32``).
 """
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

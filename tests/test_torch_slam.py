@@ -7,6 +7,8 @@ closest-then-lowest-index winner); on these inputs every decision falls
 the same way, so counts are equal and the fused rows agree to 1e-5.
 """
 
+import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
