@@ -44,9 +44,24 @@ Phases (any failure ends the script with a non-zero exit):
               Each run's launches are counted apart, and every KNN call of
               each run (regathered maps, cross-keyframe seeds) is held
               against its plain version;
-  7. small    the default path and the chamfer one at 64x64 on the card, with
-              deterministic algorithms and with the default ones, and on the
-              CPU (plain versions): the same keyframes, abs_rel and map size.
+  7. flagship the JAX package's benchmark configuration (bench.py:67-127:
+              index fusion and association, the bf16 CNN, the fused Adam),
+              all 60 frames at 320x256 after a 4-frame warm-up, with the
+              default algorithms and then with deterministic ones: 59
+              keyframes, the map within 5% of 3,968,833 points, no KNN
+              launch, and for the deterministic run (the default run's
+              trajectory varies too widely) mean abs_rel in 0.065-0.090
+              (the JAX package's TPU run, BENCH_r05.json: a sanity band);
+              the last keyframe's frame fused twice into copies of the
+              final map: equal bytes;
+  8. small    the default path, the chamfer one, index fusion and
+              association (float32) and the flagship settings at 64x64 on
+              the card, with deterministic algorithms and with the default
+              ones, and on the CPU (plain versions): the same keyframes,
+              abs_rel and map size (``SMALL_CONFIGS``: float32 tolerances,
+              and for bf16 twice the widest gaps of repeated card runs,
+              ``python3 chip_smoke.py --small-repeats N [config ...]``, which
+              runs only this phase, N times, and reports the gaps).
 The second-to-last line is the kernels' JSON line (the resident kernel has
 a second entry, ``"call": "chamfer b->a"``, for its map->frame calls), the
 last line the result.
@@ -729,27 +744,191 @@ def phase_losses(knn, stats):
     return {key: a[key] + b[key] for key in a}
 
 
+# The JAX package's TPU run of the flagship configuration (BENCH_r05.json):
+# a sanity band for the port's run, not a target of its speed.
+FLAGSHIP_KEYFRAMES = 59
+FLAGSHIP_ABS_REL = (0.065, 0.090)
+FLAGSHIP_MAP = 3_968_833
+
+
+def phase_flagship(knn, smi):
+    """The flagship configuration (bench.py:67-127 through
+    ``profile_adaptation.flagship_config``: index fusion and association,
+    the bf16 CNN, the fused Adam), all 60 frames at 320x256, twice after a
+    4-frame warm-up: with the default algorithms (the run users get: its
+    steps/s, keyframes, map size and KNN launches are checked, its abs_rel
+    only reported), then with deterministic algorithms and cuDNN, held to
+    every band. With the default algorithms, atomics in cuDNN's backward
+    make each run's trajectory differ: 16 runs on an H100 spread mean
+    abs_rel over 0.078-0.102, 5 of them past the band's 0.090 (float32 as
+    wide; PERF.md §6), so one such run cannot hold the band; the
+    deterministic run repeats to the bit. Then fusion's determinism.
+    Returns the launches per kernel over both runs."""
+    import torch
+
+    from e2eslam_tpu_torch.apps.profile_adaptation import flagship_config
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    warm = flagship_config(load_yaml(default_config_path()))
+    warm.DEMO.sequence_length = 4
+    OnlineAdaptation(warm).run(verbose=False)
+
+    def run(deterministic):
+        runner = OnlineAdaptation(flagship_config(load_yaml(default_config_path())))
+        for k in knn.KERNELS:
+            k.launches = 0
+        flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                 torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled())
+        if deterministic:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            result = runner.run(verbose=False)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+            torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
+        launches = launch_counts(knn)
+        algos = "deterministic" if deterministic else "default"
+        print(json.dumps({"phase": "flagship", "algorithms": algos,
+                          "keyframes": result["num_keyframes"],
+                          "refine_steps": result["refine_steps"],
+                          "map_points": result["map_points"],
+                          "mean_abs_rel": result["mean_abs_rel"],
+                          "elapsed_s": result["elapsed_s"],
+                          "steps_per_sec": result["steps_per_sec"], "launches": launches,
+                          "abs_rel": [m["abs_rel"] for m in result["metrics"]],
+                          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
+              flush=True)
+        losses = [m["total_loss"] for m in result["metrics"]]
+        if not result["metrics"] or not all(map(_finite, losses)):
+            fail(f"flagship ({algos}): non-finite or missing losses: {losses}")
+        if result["num_keyframes"] != FLAGSHIP_KEYFRAMES:
+            fail(f"flagship ({algos}): {result['num_keyframes']} keyframes, "
+                 f"not {FLAGSHIP_KEYFRAMES}")
+        lo, hi = FLAGSHIP_ABS_REL
+        if deterministic and not lo <= result["mean_abs_rel"] <= hi:
+            fail(f"flagship ({algos}): mean abs_rel {result['mean_abs_rel']:.5f} "
+                 f"outside [{lo}, {hi}]")
+        if not 0.0 < result["mean_abs_rel"] < 0.5:
+            fail(f"flagship ({algos}): mean abs_rel {result['mean_abs_rel']}")
+        if abs(result["map_points"] - FLAGSHIP_MAP) > 0.05 * FLAGSHIP_MAP:
+            fail(f"flagship ({algos}): {result['map_points']} map points, not within 5% "
+                 f"of {FLAGSHIP_MAP}")
+        if any(launches.values()):
+            fail(f"flagship ({algos}): the index path launched KNN kernels {launches}")
+        return runner, result, launches
+
+    runner, result, a = run(False)
+    fusion_determinism(runner, result)
+    b = run(True)[2]
+    return {key: a[key] + b[key] for key in a}
+
+
+def fusion_determinism(runner, result):
+    """Fuse the last keyframe's frame again (its depth from the adapted
+    network: nearly every pixel merges, many into shared slots) into two
+    copies of the flagship run's final map: the maps and index images must
+    be equal byte for byte (duplicate slots resolve by an explicit rule,
+    not by the order of the card's writes)."""
+    import dataclasses
+
+    import torch
+
+    from e2eslam_tpu_torch.data.pipeline import load_batch
+    from e2eslam_tpu_torch.slam.rgbd import build_frame
+
+    colors, depths, K, poses, _ = load_batch(runner.dataset, [0])
+    f = result["keyframes"][-1]
+    dev = runner.device
+    color, gt, K, pose = (torch.from_numpy(x).to(dev)
+                          for x in (colors[0][[f]], depths[0][[f]], K[0], poses[0][f]))
+    engine = runner.engine
+    with torch.no_grad():
+        depth = engine.apply_scaling(engine.forward_depths(color)[1], gt, K)
+    frame = build_frame(color[0], depth[0], K, pose)
+    m = result["map"]
+    outs = [runner.engine.slam._update_map(dataclasses.replace(m, data=m.data.clone()), frame)
+            for _ in range(2)]
+    a, b = outs
+    same = {"data": torch.equal(a.data, b.data),
+            "index_image": torch.equal(a.index_image, b.index_image),
+            "index_image2": torch.equal(a.index_image2, b.index_image2),
+            "index_pose": torch.equal(a.index_pose, b.index_pose),
+            "count": a.count == b.count, "kf_counter": a.kf_counter == b.kf_counter}
+    merged = int((a.index_image >= 0).sum()) - (a.count - m.count)
+    print(json.dumps({"phase": "fusion_determinism", "frame": f, "map_points": m.count,
+                      "appended": a.count - m.count, "merged_pixels": merged,
+                      "same": same}), flush=True)
+    if not all(same.values()):
+        fail(f"fusion is not deterministic on the card: {same}")
+
+
 def _finite(x) -> bool:
     return x == x and abs(x) != float("inf")
 
 
-SMALL_CONFIGS = {"default": {}, "chamfer": {"three3d_loss": False, "chamfer_distance": True}}
+def _small_loss(**loss):
+    def setup(cfg):
+        cfg.LOSS.update(loss)
+        return cfg
+    return setup
 
 
-def phase_small(name):
-    """A path at 64x64: card (kernels, cuDNN) vs CPU (plain versions)."""
+def _small_index(cfg):
+    """Index fusion and association in float32."""
+    cfg.LOSS.three3d_loss = True
+    cfg.MODEL.fusion_impl = "index"
+    cfg.LOSS.knn_impl = "index"
+    return cfg
+
+
+def _small_flagship(cfg):
+    """The flagship settings (bf16 CNN, fused Adam) at 64x64, 6 frames."""
+    from e2eslam_tpu_torch.apps.profile_adaptation import flagship_config
+
+    cfg = flagship_config(cfg)
+    cfg.DATA.height, cfg.DATA.width = 64, 64
+    cfg.DEMO.sequence_length = 6
+    return cfg
+
+
+# Tolerances of the card's runs against the CPU's: the deterministic card
+# run's first keyframe (``first``) and later ones (``later``) in abs_rel;
+# the default-algorithm run's mean abs_rel (``mean``); both runs' map sizes
+# (``map``, relative, at least 4 points).
+F32_TOL = {"first": 1e-3, "later": 5e-2, "mean": 5e-2, "map": 1e-2}
+# bf16 (cuDNN on the card, oneDNN on the CPU) and the fused Adam against the
+# CPU's foreach Adam: twice the widest gaps over 20 repeated runs on an H100
+# (``python3 chip_smoke.py --small-repeats 10 flagship``, twice: 0.89%,
+# 4.24%, 1.94%, 0.70%; PERF.md §6).
+BF16_TOL = {"first": 0.018, "later": 0.085, "mean": 0.039, "map": 0.014}
+SMALL_CONFIGS = {
+    "default": (_small_loss(), F32_TOL),
+    "chamfer": (_small_loss(three3d_loss=False, chamfer_distance=True), F32_TOL),
+    "index": (_small_index, F32_TOL),
+    "flagship": (_small_flagship, BF16_TOL),
+}
+
+
+def phase_small(name, check=True):
+    """A path at 64x64: card (kernels, cuDNN) vs CPU (plain versions).
+    Returns the gaps the tolerances hold; with ``check`` off it only
+    measures them."""
     import torch
 
     from e2eslam_tpu_torch.config import default_config_path, load_yaml
     from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    setup, tol = SMALL_CONFIGS[name]
 
     def run(device):
         cfg = load_yaml(default_config_path())
         cfg.DATA.height, cfg.DATA.width = 64, 64
         cfg.DEMO.sequence_length = 5
         cfg.DEMO.frame_threshold = 0.01
-        cfg.LOSS.update(SMALL_CONFIGS[name])
-        return OnlineAdaptation(cfg, device=device).run(verbose=False)
+        return OnlineAdaptation(setup(cfg), device=device).run(verbose=False)
 
     # One card run with deterministic algorithms (restored after), held to
     # the CPU keyframe by keyframe; with the default ones, atomics in the
@@ -769,32 +948,54 @@ def phase_small(name):
         torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
     d = run("cuda")  # the default algorithms, as the main path runs
     b = run("cpu")
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    gaps = {"first": rel(a["metrics"][0]["abs_rel"], b["metrics"][0]["abs_rel"]),
+            "later": max([rel(ma["abs_rel"], mb["abs_rel"])
+                          for ma, mb in zip(a["metrics"][1:], b["metrics"][1:])] or [0.0]),
+            "mean": rel(d["mean_abs_rel"], b["mean_abs_rel"]),
+            "map": max(rel(a["map_points"], b["map_points"]),
+                       rel(d["map_points"], b["map_points"]))}
     line = {"phase": "small", "config": name, "runs": ["cuda deterministic", "cuda default", "cpu"],
             "keyframes": [a["num_keyframes"], d["num_keyframes"], b["num_keyframes"]],
             "mean_abs_rel": [a["mean_abs_rel"], d["mean_abs_rel"], b["mean_abs_rel"]],
-            "map_points": [a["map_points"], d["map_points"], b["map_points"]]}
+            "map_points": [a["map_points"], d["map_points"], b["map_points"]],
+            "gaps": gaps, "tolerances": tol}
     print(json.dumps(line), flush=True)
+    if not check:
+        return gaps
     if not a["keyframes"] == d["keyframes"] == b["keyframes"]:
         fail(f"small ({name}): card and CPU chose different keyframes")
-    # The default run's mean abs_rel to 5%: twice the widest gap to the CPU
-    # over those 30 runs (2.4%).
-    if abs(d["mean_abs_rel"] - b["mean_abs_rel"]) > 5e-2 * abs(b["mean_abs_rel"]):
-        fail(f"small ({name}): the card's default-algorithm mean abs_rel differs from the CPU's beyond 5%")
-    if abs(d["map_points"] - b["map_points"]) > max(4, b["map_points"] // 100):
-        fail(f"small ({name}): the card's default-algorithm map size differs from the CPU's beyond 1%")
-    # The tolerances of tests/test_torch_engine.py's run against the JAX
-    # package: the first keyframe (empty map) to 1e-3; later ones to 5%, as
-    # nearest-neighbour near-ties flip a few neighbours and Adam's
-    # normalised steps spread that; the map size to 1%.
-    for k, (ma, mb) in enumerate(zip(a["metrics"], b["metrics"])):
-        rtol = 1e-3 if k == 0 else 5e-2
-        if abs(ma["abs_rel"] - mb["abs_rel"]) > rtol * abs(mb["abs_rel"]):
-            fail(f"small ({name}): card and CPU abs_rel differ beyond {rtol} at keyframe {k}")
-    if abs(a["map_points"] - b["map_points"]) > max(4, b["map_points"] // 100):
-        fail(f"small ({name}): card and CPU map sizes differ beyond 1%")
+    # float32: the default run's mean abs_rel to 5%, twice the widest gap to
+    # the CPU over those 30 runs (2.4%); the deterministic run keyframe by
+    # keyframe as tests/test_torch_engine.py holds the port to the JAX
+    # package (the first keyframe, an empty map, to 1e-3; later ones to 5%,
+    # as nearest-neighbour near-ties flip a few neighbours and Adam's
+    # normalised steps spread that); the map sizes to 1%.
+    for key, gap in gaps.items():
+        if key == "map":
+            ok = max(abs(a["map_points"] - b["map_points"]),
+                     abs(d["map_points"] - b["map_points"])) <= max(4, tol["map"] * b["map_points"])
+        else:
+            ok = gap <= tol[key]
+        if not ok:
+            fail(f"small ({name}): the card's {key} gap to the CPU {gap:.4g} exceeds {tol[key]}")
+    return gaps
 
 
-def main() -> int:
+def small_repeats(n, names):
+    """``phase_small`` ``n`` times per config, measuring only: the widest
+    gap of each kind over the runs (the data of the bf16 tolerances)."""
+    for name in names:
+        runs = [phase_small(name, check=False) for _ in range(n)]
+        widest = {key: max(r[key] for r in runs) for key in runs[0]}
+        print(json.dumps({"phase": "small_repeats", "config": name, "runs": n,
+                          "widest_gaps": widest}), flush=True)
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -807,6 +1008,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
+    repeats = None
+    if argv and argv[0] == "--small-repeats":
+        repeats, names = int(argv[1]), argv[2:] or list(SMALL_CONFIGS)
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -832,6 +1036,9 @@ def main() -> int:
     from e2eslam_tpu_torch.ops import spatial_sort
 
     set_full_fp32()
+    if repeats is not None:
+        small_repeats(repeats, names)
+        return 0
     stats = {}
     # 3. kernels
     phase_kernels(knn, spatial_sort, stats)
@@ -841,7 +1048,9 @@ def main() -> int:
     chamfer_launches, _ = phase_chamfer(knn, stats)
     # 6. the loss family, two networks
     losses_launches = phase_losses(knn, stats)
-    # 7. small input, card vs CPU
+    # 7. the flagship configuration, then fusion's determinism
+    flagship_launches = phase_flagship(knn, smi)
+    # 8. small input, card vs CPU
     for config in SMALL_CONFIGS:
         phase_small(config)
 
@@ -858,6 +1067,7 @@ def main() -> int:
                         "replaces": replaces, "launches": n,
                         "chamfer_launches": chamfer_launches[key],
                         "losses_launches": losses_launches[key],
+                        "flagship_launches": flagship_launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                         "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),
@@ -876,4 +1086,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,20 +1,28 @@
 """Measure online adaptation on one CUDA card: steps/s, quality, where the time goes.
 
     python -m e2eslam_tpu_torch.apps.profile_adaptation \\
-        [--config_path configs/config.yaml] [--workload config|chamfer]
+        [--config_path configs/config.yaml] [--workload config|chamfer|flagship]
+        [--set SECTION.key=value ...] [--runs 1] [--deterministic]
         [--profile_frames 12] [--out DIR]
 
 Three runs of the config's main path, each on a fresh runner with the same
 seeded weights, after the kernels are built:
   1. a warm-up of 4 frames (cuDNN heuristics, allocator, kernel loading);
-  2. the config as it stands (``DEMO.sequence_length`` frames), timed with a
-     synchronised host clock: steps/s, mean abs_rel, map points, KNN launches;
+  2. the config as it stands (``DEMO.sequence_length`` frames), ``--runs``
+     times, each timed with a synchronised host clock: steps/s, mean
+     abs_rel, map points, KNN launches (the spread of identical runs;
+     ``--deterministic``: with deterministic algorithms and cuDNN, whose
+     runs repeat);
   3. ``--profile_frames`` frames under ``torch.profiler``: device time by
      kernel family, and the device's idle share over the adaptation loop
      (1 - kernel time / the run's own clock, profiler overhead included).
 ``--workload chamfer`` applies tools/bench_exact.py's TUM chamfer row to
-the config (``chamfer_config``). Prints one JSON object per run; with
-``--out DIR`` also writes them to ``DIR/profile.json``.
+the config (``chamfer_config``), ``--workload flagship`` the JAX package's
+benchmark configuration (``flagship_config``: index fusion and
+association, the bf16 CNN, the fused Adam). Prints one JSON object per
+run; with ``--out DIR`` also writes them to ``DIR/profile.json``.
+``--set`` overrides a setting after the workload's (a YAML value, e.g.
+``--set SETTINGS.compute_dtype=float32``).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import os
 import subprocess
 
 import torch
+import yaml
 
 from e2eslam_tpu_torch.config import default_config_path, load_yaml
 from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
@@ -55,8 +64,9 @@ def chamfer_config(cfg):
     (:35-50): 40 frames at dilation 5, keyframes 0.12 m apart, three3d off,
     the exact bidirectional chamfer on, brute KNN at strides 1/1, scatter
     fusion, 3 refine steps, the median over every 4th pixel. In float32
-    with the per-tensor Adam: the row's bf16 network and fused update
-    belong to a later slice of the port."""
+    with the per-tensor Adam, where the row runs the bf16 network and the
+    fused update (``--set`` applies them), so its numbers compare with the
+    cell's earlier runs."""
     cfg.DATA.name = "synthetic"
     cfg.DATA.start = 0
     cfg.DATA.dilation = 5
@@ -73,11 +83,49 @@ def chamfer_config(cfg):
     return cfg
 
 
-WORKLOADS = {"config": lambda cfg: cfg, "chamfer": chamfer_config}
+def flagship_config(cfg):
+    """The JAX package's benchmark configuration, ``bench.py:67-127``
+    (``flagship_cfg``; its own copy, since bench.py imports JAX): 60
+    synthetic frames at 320x256, dilation 2, keyframes 0.03 m apart, 3 PFT
+    steps; three3d through the index image (fusion and association, query
+    stride 1, association on level 1 of two index levels, no search
+    radius), relative alignment, a 0.15 m distance gate, confidence
+    weights, weight 0.1; the bf16 CNN, the fused Adam and the median over
+    every 4th pixel."""
+    cfg.DATA.name = "synthetic"
+    cfg.DATA.height, cfg.DATA.width = 256, 320
+    cfg.DATA.start = 0
+    cfg.DATA.dilation = 2
+    cfg.DEMO.sequence_length = 60
+    cfg.DEMO.frame_threshold = 0.03
+    cfg.OPTIMIZATION.refinement_steps = 3
+    cfg.LOSS.three3d_loss = True
+    cfg.MODEL.fusion_impl = "index"
+    cfg.LOSS.knn_impl = "index"
+    cfg.LOSS.three3d_query_stride = 1
+    cfg.LOSS.three3d_align = "relative"
+    cfg.LOSS.three3d_dist_gate = 0.15
+    cfg.LOSS.three3d_conf_weight = True
+    cfg.LOSS.three3d_loss_weight = 0.1
+    cfg.SETTINGS.compute_dtype = "bfloat16"
+    cfg.MODEL.index_search_radius = 0
+    cfg.MODEL.index_levels = 2
+    cfg.LOSS.index_assoc_levels = 1
+    cfg.OPTIMIZATION.fused_update = True
+    cfg.ABLATION.median_stride = 4
+    return cfg
 
 
-def _config(path, workload="config", frames=None):
+WORKLOADS = {"config": lambda cfg: cfg, "chamfer": chamfer_config,
+             "flagship": flagship_config}
+
+
+def _config(path, workload="config", frames=None, overrides=()):
     cfg = WORKLOADS[workload](load_yaml(path))
+    for item in overrides:
+        key, value = item.split("=", 1)
+        section, flag = key.split(".")
+        cfg[section][flag] = yaml.safe_load(value)
     if frames:
         cfg.DEMO.sequence_length = int(frames)
     return cfg
@@ -103,6 +151,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config_path", default=default_config_path())
     p.add_argument("--workload", choices=sorted(WORKLOADS), default="config")
+    p.add_argument("--set", action="append", default=[], metavar="SECTION.key=value")
+    p.add_argument("--runs", type=int, default=1)
+    p.add_argument("--deterministic", action="store_true")
     p.add_argument("--profile_frames", type=int, default=12)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
@@ -112,20 +163,26 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
+    if args.deterministic:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-           "workload": args.workload, "build_s": cuda_build.build()}
+           "workload": args.workload, "set": args.set, "deterministic": args.deterministic,
+           "build_s": cuda_build.build()}
     print(json.dumps(out), flush=True)
 
-    _run(_config(args.config_path, args.workload, 4))  # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    timed = _run(_config(args.config_path, args.workload))
-    timed["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["timed"] = timed
-    print(json.dumps({"timed": timed}), flush=True)
+    _run(_config(args.config_path, args.workload, 4, args.set))  # warm-up
+    out["timed"] = []
+    for _ in range(args.runs):
+        torch.cuda.reset_peak_memory_stats()
+        timed = _run(_config(args.config_path, args.workload, overrides=args.set))
+        timed["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["timed"].append(timed)
+        print(json.dumps({"timed": timed}), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        profiled = _run(_config(args.config_path, args.workload, args.profile_frames))
+        profiled = _run(_config(args.config_path, args.workload, args.profile_frames, args.set))
     # The run's own clock starts after the runner is built and the frames
     # are rendered, so the idle share is over the adaptation loop alone.
     wall_ms = profiled["elapsed_s"] * 1e3

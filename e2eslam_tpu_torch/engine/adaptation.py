@@ -6,6 +6,10 @@ refinement steps of the depth network per keyframe window, then fuse the
 newest keyframe pair into the global map. One eager loop over keyframes:
 the JAX package's per-keyframe loop (``adaptation.py:225-377``), which also
 serves its 3-frame windows, its sort cache and its cross-keyframe seeds.
+The flagship configuration (index fusion and association) runs the same
+loop where the JAX runner takes its whole-sequence program
+(``adaptation.py:186-223``); the runs agree to the tolerances of
+``tests/test_torch_flagship.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ from e2eslam_tpu_torch.losses.trajectory import (
     relative_pose_error,
 )
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
-from e2eslam_tpu_torch.slam.pointclouds import empty_map
 
 
 def _camera_centers(poses: np.ndarray) -> np.ndarray:
@@ -85,9 +88,11 @@ class OnlineAdaptation:
         self.engine = RefinementEngine(config, model, map_capacity=self.capacity,
                                        device=self.device)
         L = config.LOSS
+        # The brute KNN's sorted, bucketed map view; the index association
+        # (LOSS.knn_impl: index) has no sort, no bucket and no seeds.
         self._bucketed_sort = (bool(L.get("knn_spatial_sort", True))
                                and bool(L.get("knn_bucket", True))
-                               and self.engine.point_losses)
+                               and self.engine.point_losses and not self.engine.index_assoc)
         self._sort_cache = None  # {perm, inv, bucket, age, known}
 
     def _bucket(self, count: int, first: bool, last: int) -> int:
@@ -116,7 +121,7 @@ class OnlineAdaptation:
         schedule = keyframe_schedule(poses_np[0], float(cfg.DEMO.frame_threshold))
 
         engine = self.engine
-        global_map = empty_map(self.capacity, device=dev)
+        global_map = engine.make_empty_map()
         keyframes: List[int] = []
         per_pair: List[Dict] = []
         est_poses = []

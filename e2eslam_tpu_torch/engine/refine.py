@@ -7,11 +7,14 @@ scaling, gt-pose view synthesis, then the loss family of
 ``RefinementEngine._assemble_losses``: the photometric loss (masked,
 auto-masked, min-reprojection), the geometric, smoothness,
 depth-regularizer and sparse-supervision terms, and the end-to-end 3D point
-losses against the global map with the exact brute-force KNN (three3d or
-its ``knn_points`` alias, and the bidirectional chamfer) -- then fusion of
-the newest keyframe pair into the map.
+losses against the global map (three3d or its ``knn_points`` alias, and the
+bidirectional chamfer) -- then fusion of the newest keyframe pair into the
+map. The 3D losses find their neighbours by the exact brute-force KNN
+(``LOSS.knn_impl: brute``) or through the last fused keyframe's cached
+index image (``index``, with ``MODEL.fusion_impl: index``: gathers only, no
+KNN).
 
-The 3D losses thread warm starts through a keyframe's steps as the JAX
+The brute 3D losses thread warm starts through a keyframe's steps as the JAX
 ``process_pair`` does: step 0 of the frame->map searches is seeded by a
 strided KNN over the map's newest rows (``tail_seed``), the chamfer's
 map->frame search by the pixel each map point projects to; steps 1..R-1
@@ -33,6 +36,7 @@ whole-sequence programs; the engine is a plain per-step loop.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -56,8 +60,8 @@ from e2eslam_tpu_torch.losses.regularizers import (
 )
 from e2eslam_tpu_torch.ops.knn import knn
 from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, morton_codes, sort_map_points
-from e2eslam_tpu_torch.slam.fusion import _project_pixels, frame_pointcloud
-from e2eslam_tpu_torch.slam.pointclouds import MapState
+from e2eslam_tpu_torch.slam.fusion import _project_pixels, frame_pointcloud, index_nn
+from e2eslam_tpu_torch.slam.pointclouds import MapState, empty_map
 from e2eslam_tpu_torch.slam.rgbd import build_frame
 from e2eslam_tpu_torch.slam.slam import PointFusion
 
@@ -82,13 +86,19 @@ class PairBatch(NamedTuple):
 
 def validate_config(config) -> None:
     """Refuse settings whose code paths the port does not carry yet
-    (ROADMAP.md, queue A)."""
+    (ROADMAP.md, queue A), and the JAX package's inconsistent pair
+    (``e2eslam_tpu/engine/refine.py:149-163``)."""
     L, M, O = config.LOSS, config.MODEL, config.OPTIMIZATION
+    impl = str(L.get("knn_impl", "brute"))
+    if impl == "index" and str(M.get("fusion_impl", "scatter")) != "index":
+        raise ValueError(
+            "LOSS.knn_impl: index requires MODEL.fusion_impl: index (the fusion step "
+            "maintains the index image the association reads)")
     bad = []
-    if str(L.get("knn_impl", "brute")) != "brute":
-        bad.append(f"LOSS.knn_impl={L.get('knn_impl')!r} (only brute)")
-    if str(M.get("fusion_impl", "scatter")) != "scatter":
-        bad.append("MODEL.fusion_impl (only scatter)")
+    if impl not in ("brute", "index"):
+        bad.append(f"LOSS.knn_impl={impl!r} (only brute and index)")
+    if str(M.get("fusion_impl", "scatter")) not in ("scatter", "index"):
+        bad.append(f"MODEL.fusion_impl={M.get('fusion_impl')!r} (only scatter and index)")
     if M.get("active_window"):
         bad.append("MODEL.active_window")
     for k in ("compact_period", "compact_voxel"):
@@ -96,10 +106,8 @@ def validate_config(config) -> None:
             bad.append(f"MODEL.{k} (compaction)")
     if str(O.get("refinement", "PFT")) != "PFT":
         bad.append("OPTIMIZATION.refinement (only PFT)")
-    if O.get("fused_update"):
-        bad.append("OPTIMIZATION.fused_update")
-    if str(config.SETTINGS.get("compute_dtype", "float32")) != "float32":
-        bad.append("SETTINGS.compute_dtype (only float32)")
+    if str(config.SETTINGS.get("compute_dtype", "float32")) not in ("float32", "bfloat16"):
+        bad.append("SETTINGS.compute_dtype (float32 or bfloat16)")
     if not config.DATA.get("use_gt_pose", True):
         bad.append("DATA.use_gt_pose: false (estimated-pose view synthesis)")
     if bad:
@@ -167,13 +175,20 @@ class RefinementEngine:
         trainable = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer, self.scheduler = make_optimizer(config, trainable)
         M = config.MODEL
-        self.slam = PointFusion(odom=str(M.odom), dist_th=float(M.dist_th),
-                                angle_th=float(M.angle_th), sigma=float(M.sigma))
+        self.slam = PointFusion(
+            odom=str(M.odom), dist_th=float(M.dist_th), angle_th=float(M.angle_th),
+            sigma=float(M.sigma), fusion_impl=str(M.get("fusion_impl", "scatter")),
+            index_levels=int(M.get("index_levels", 1) or 1),
+            index_level2_period=int(M.get("index_level2_period", 1) or 1),
+            index_search_radius=int(M.get("index_search_radius", 0) or 0))
         L = config.LOSS
         self.refinement_steps = int(config.OPTIMIZATION.refinement_steps)
         self.point_losses = bool(L.three3d_loss or L.get("knn_points")
                                  or L.get("chamfer_distance"))
-        self.warm = (self.refinement_steps > 1 and self.point_losses
+        self.index_assoc = str(L.get("knn_impl", "brute")) == "index"
+        # Warm starts thread the brute KNN's indices; the index association
+        # has none to thread.
+        self.warm = (self.refinement_steps > 1 and self.point_losses and not self.index_assoc
                      and bool(L.get("knn_warm_start", True)))
         seed = config.SETTINGS.get("seed")
         self.generator = torch.Generator(device=device).manual_seed(
@@ -190,14 +205,16 @@ class RefinementEngine:
     def forward_depths(self, colors: Tensor) -> Tuple[Tensor, Tensor]:
         """Batched depth forward of all frames. Returns (disp, depth)."""
         cfg = self.config
+        # The network's disparity leaves in its compute dtype; the losses and
+        # geometry run in float32 (e2eslam_tpu/engine/refine.py:237, :245).
         if cfg.ABLATION.get("dual_disparity", False):
             # The image and its horizontal flip in one doubled batch, blended
             # (reference train_depth.py:224-237, :333-338).
             F = colors.shape[0]
-            d = self.model(torch.cat([colors, colors.flip(2)], dim=0))
+            d = self.model(torch.cat([colors, colors.flip(2)], dim=0)).float()
             disp = _merge_dual_disparity(d[:F], d[F:].flip(2))
         else:
-            disp = self.model(colors)
+            disp = self.model(colors).float()
         if cfg.MODEL.depth_network == "indoor":
             return disp, indoor_disp_to_depth(disp)
         return disp, disp_to_depth(disp, float(cfg.DATA.min_depth), float(cfg.DATA.max_depth))
@@ -332,9 +349,11 @@ class RefinementEngine:
         return loss, aux
 
     def _point_losses(self, pair, depth, map_state, map_index, knn_init, thread_knn):
-        """The end-to-end 3D point losses, brute (exact) branch
-        (refine.py:479-859): three3d (or ``knn_points``) frame->map, and the
-        bidirectional chamfer. Returns ({name: (value, weight)}, cache)."""
+        """The end-to-end 3D point losses (refine.py:479-859): three3d (or
+        ``knn_points``) frame->map, and the bidirectional chamfer, by the
+        exact brute-force KNN or, with ``knn_impl: index``, through the
+        index image (``_index_terms``). Returns ({name: (value, weight)},
+        cache)."""
         L = self.config.LOSS
         frame = build_frame(pair.colors[TARGET], depth[TARGET], pair.intrinsics,
                             pair.poses[TARGET])
@@ -386,6 +405,9 @@ class RefinementEngine:
         # keyframe; the KNN then returns index 0 (finite) and the gate
         # zeroes the loss.
         gate = 1.0 if count > 0 else 0.0
+        if self.index_assoc:
+            return self._index_terms(frame, live, pts, msk, tex, debias, T_rel, map_state,
+                                     map_pts[:map_count], gate, stride), cache
         idx_ab = None
         if L.three3d_loss or L.get("knn_points"):
             _, idx_ab = knn_points_loss(map_pts, pts, n_gt=map_count,
@@ -424,6 +446,44 @@ class RefinementEngine:
             d_ba = masked_point_loss(map_pts, pts_safe.index_select(0, idx_ba.long()), mvalid)
             terms["chamfer"] = (gate * (d_ab + d_ba), 0.5 * float(L.chamfer_weight))
         return terms, cache
+
+    def _index_terms(self, frame, live, pts, msk, tex, debias, T_rel, map_state: MapState,
+                     map_pts: Tensor, gate: float, stride: int) -> Dict:
+        """The 3D losses' index branch (refine.py:622-658, :726-783): each
+        query pixel's neighbour is the map slot ``index_nn`` reads for it
+        (``LOSS.index_assoc_levels`` levels), recomputed every step from the
+        step's own depth. three3d optionally drops matches farther than
+        ``three3d_dist_gate`` and weights each by its map point's confidence
+        (``three3d_conf_weight``: min(conf, 4) / 4). The chamfer's a->b
+        reuses that association; its b->a pairs each valid map row of
+        ``map_pts`` with the predicted point at the pixel it projects to in
+        the target camera: gathers only, no KNN."""
+        L = self.config.LOSS
+        levels = L.get("index_assoc_levels")
+        nn_idx, found = index_nn(map_state, frame, levels=int(levels) if levels else None)
+        rows = map_state.data.index_select(0, nn_idx[::stride]).detach()
+        nn = rows[:, 0:3]
+        w_found = msk * found[::stride].to(msk.dtype)
+        terms = {}
+        if L.three3d_loss or L.get("knn_points"):
+            w3 = w_found
+            dist_gate = L.get("three3d_dist_gate")
+            if dist_gate:
+                w3 = w3 * (((pts - nn) ** 2).sum(dim=-1) < float(dist_gate) ** 2).to(w3.dtype)
+            if L.get("three3d_conf_weight", False):
+                w3 = w3 * rows[:, 9].clamp(max=4.0) * 0.25
+            w = L.three3d_loss_weight if L.three3d_loss else L.knn_points_weight
+            terms["three3d"] = (gate * masked_point_loss(pts, nn, w3, scale=tex, debias=debias),
+                                float(w))
+        if L.get("chamfer_distance"):
+            d_ab = masked_point_loss(pts, nn, w_found)
+            H, W = frame.depth.shape[:2]
+            q_pix, in_frame = _project_pixels(map_pts, frame.pose, frame.intrinsics, H, W)
+            q_pt = transform_points(T_rel, live.points).index_select(0, q_pix)
+            w_ba = in_frame.to(pts.dtype) * live.mask.index_select(0, q_pix)
+            d_ba = masked_point_loss(map_pts, q_pt, w_ba)
+            terms["chamfer"] = (gate * (d_ab + d_ba), 0.5 * float(L.chamfer_weight))
+        return terms
 
     def _tail_seed(self, q: Tensor, map_state: MapState, map_index: SortedMap) -> Tensor:
         """Step-0 warm-start candidates from the map's newest rows: a KNN
@@ -487,11 +547,24 @@ class RefinementEngine:
         map_state, est_pose = self.slam.step(map_state, live, prev)
         return map_state, est_pose
 
+    def make_empty_map(self) -> MapState:
+        """The empty global map for this config: the one place that decides
+        whether the map keeps index images (index fusion or index
+        association; refine.py:1028-1046)."""
+        cfg = self.config
+        needs_index = (str(cfg.MODEL.get("fusion_impl", "scatter")) == "index"
+                       or self.index_assoc)
+        H, W = int(cfg.DATA.height), int(cfg.DATA.width)
+        return empty_map(self.map_capacity, device=self.device,
+                         index_hw=H * W if needs_index else None,
+                         index_levels=int(cfg.MODEL.get("index_levels", 1) or 1))
+
     def build_map_index(self, map_state: MapState, bucket: Optional[int] = None):
         """A Morton-sorted view of the map's first ``bucket`` rows (all
         valid rows live there) for the brute KNN, or None when the sort is
-        off or no 3D loss runs."""
-        if not (self.point_losses and bool(self.config.LOSS.get("knn_spatial_sort", True))):
+        off, no 3D loss runs or the association reads the index image."""
+        if not (self.point_losses and not self.index_assoc
+                and bool(self.config.LOSS.get("knn_spatial_sort", True))):
             return None
         pts = map_state.points.detach()
         if bucket is not None:
@@ -512,8 +585,7 @@ class RefinementEngine:
         """
         view = map_state
         if isinstance(map_index, SortedMap) and map_index.points.shape[0] < map_state.data.shape[0]:
-            view = MapState(data=map_state.data[: map_index.points.shape[0]],
-                            count=map_state.count)
+            view = dataclasses.replace(map_state, data=map_state.data[: map_index.points.shape[0]])
         steps = []
         kc = knn_init0 if self.warm else None
         for i in range(self.refinement_steps):
@@ -523,4 +595,4 @@ class RefinementEngine:
                 kc = cache
             steps.append(metrics)
         view, est_pose = self.fuse_pair(fuse_batch or pair, view, fuse_prev=fuse_prev)
-        return MapState(data=map_state.data, count=view.count), steps, est_pose, kc
+        return dataclasses.replace(view, data=map_state.data), steps, est_pose, kc

@@ -8,7 +8,8 @@ at scale 0 only; the monodepth2 decoder's is a sigmoid at every scale of
 ``DATA.scales``. Each decoder is a ``ModuleList`` indexed as the
 reference's: ``upconv_{i}_{j}`` at ``(4 - i) * 2 + j`` and ``dispconv_{s}``
 at ``10 + s`` (the indoor decoder has all four heads, as in the reference
-checkpoints; only scale 0 runs).
+checkpoints; only scale 0 runs). The decoders compute in their input
+features' dtype (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Dict, List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from e2eslam_tpu_torch.models.layers import Conv2d, constant
 
 Tensor = torch.Tensor
 
@@ -30,7 +33,7 @@ class Conv3x3(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.pad = nn.ReflectionPad2d(1)
-        self.conv = nn.Conv2d(cin, cout, 3)
+        self.conv = Conv2d(cin, cout, 3)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.conv(self.pad(x))
@@ -102,7 +105,7 @@ class IndoorDepthDecoder(_UNetDecoder):
         super().__init__(num_ch_enc, (0, 1, 2, 3), use_skips)
 
     def head(self, x: Tensor) -> Tensor:
-        return self.alpha * torch.sigmoid(x) + self.beta
+        return self.alpha * torch.sigmoid(x) + constant(self.beta, x.dtype)
 
 
 class DepthDecoder(_UNetDecoder):

@@ -5,7 +5,9 @@ encoder + indoor decoder. ``MonodepthNet`` (``monodepth2``, the reference's
 encoder and depth decoder pair, ``online_adaption.py:129-141``): ResNet
 encoder + monodepth2 decoder. Images enter NHWC ``[B, H, W, 3]`` in [0, 1]
 and the scale-0 disparity leaves NHWC ``[B, H, W, 1]`` (the decoders return
-every scale they emit); the convolutions run NCHW inside.
+every scale they emit); the convolutions run NCHW inside. ``dtype``
+(``SETTINGS.compute_dtype``) is the activations' dtype, the disparity's
+too: the engine casts it to float32 (``e2eslam_tpu/engine/refine.py:237``).
 Batch norm always runs in inference mode (the refinement freezes it, and
 the JAX forward passes ``train=False``): the model is put in ``eval()`` at
 construction and ``train()`` keeps it there.
@@ -47,16 +49,17 @@ class _EncoderDecoder(nn.Module):
 class DispResNetIndoor(_EncoderDecoder):
     """ResNet encoder + indoor decoder (``10 * sigmoid + 0.01``)."""
 
-    def __init__(self, num_layers: int = 18):
-        encoder = ResnetEncoder(num_layers)
+    def __init__(self, num_layers: int = 18, dtype: torch.dtype = torch.float32):
+        encoder = ResnetEncoder(num_layers, dtype=dtype)
         super().__init__(encoder, IndoorDepthDecoder(encoder.num_ch_enc))
 
 
 class MonodepthNet(_EncoderDecoder):
     """ResNet encoder + monodepth2 decoder (sigmoid disparity)."""
 
-    def __init__(self, num_layers: int = 18, scales: Sequence[int] = (0, 1, 2, 3)):
-        encoder = ResnetEncoder(num_layers)
+    def __init__(self, num_layers: int = 18, scales: Sequence[int] = (0, 1, 2, 3),
+                 dtype: torch.dtype = torch.float32):
+        encoder = ResnetEncoder(num_layers, dtype=dtype)
         super().__init__(encoder, DepthDecoder(encoder.num_ch_enc, scales))
 
 
@@ -85,16 +88,25 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.running_var.fill_(1.0)
 
 
+def compute_dtype(config) -> torch.dtype:
+    """The CNN's activation dtype, ``SETTINGS.compute_dtype``."""
+    name = str(config.SETTINGS.get("compute_dtype", "float32"))
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"SETTINGS.compute_dtype {name!r}: float32 or bfloat16")
+    return getattr(torch, name)
+
+
 def make_depth_model(config, *, seed: int = 0) -> nn.Module:
     """Build the network ``MODEL.depth_network`` selects, initialised from
     a seeded generator (on the CPU, so every device gets the same weights)."""
     kind = config.MODEL.depth_network
     if kind not in ("indoor", "monodepth2"):
         raise ValueError(f"{kind} is not a valid depth network option")
+    dtype = compute_dtype(config)
     if kind == "indoor":
-        model = DispResNetIndoor(num_layers=int(config.MODEL.num_layers))
+        model = DispResNetIndoor(num_layers=int(config.MODEL.num_layers), dtype=dtype)
     else:
         model = MonodepthNet(num_layers=int(config.MODEL.num_layers),
-                             scales=tuple(config.DATA.scales))
+                             scales=tuple(config.DATA.scales), dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model

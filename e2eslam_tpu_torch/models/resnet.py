@@ -5,7 +5,9 @@ ResNet 18/34/50 trunk, input normalisation ``(x - 0.45) / 0.225``, five
 feature maps with channels ``[64, 64, 128, 256, 512]`` (x4 beyond 34
 layers). Submodules carry torchvision's names (``conv1``, ``bn1``,
 ``layer1.0.conv1``, ``layer2.0.downsample.0`` ...), so ``state_dict()`` keys
-are the reference checkpoints' keys.
+are the reference checkpoints' keys. ``dtype`` is the compute dtype
+(``SETTINGS.compute_dtype``): the normalised input and every activation
+after it (``models/layers.py``); the parameters stay float32.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import List
 
 import torch
 from torch import nn
+
+from e2eslam_tpu_torch.models.layers import BatchNorm2d, Conv2d, constant
 
 Tensor = torch.Tensor
 
@@ -33,11 +37,11 @@ def encoder_channels(num_layers: int) -> List[int]:
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+    return BatchNorm2d(c, eps=1e-5)
 
 
 class BasicBlock(nn.Module):
@@ -90,15 +94,16 @@ class ResnetEncoder(nn.Module):
     """Five-scale ResNet feature extractor: NCHW images in [0, 1] ->
     five NCHW feature maps at strides 2/4/8/16/32."""
 
-    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if num_layers not in RESNET_SPECS:
             raise ValueError(f"{num_layers} is not a valid ResNet depth")
         kind, stages = RESNET_SPECS[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
         self.num_ch_enc = encoder_channels(num_layers)
-        self.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, stride=2, padding=3,
-                               bias=False)
+        self.conv1 = Conv2d(3 * num_input_images, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _bn(64)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -112,7 +117,8 @@ class ResnetEncoder(nn.Module):
             self.add_module(f"layer{stage}", nn.Sequential(*blocks))
 
     def forward(self, x: Tensor) -> List[Tensor]:
-        x = (x - 0.45) / 0.225
+        # In the compute dtype, constants included (resnet.py:117).
+        x = (x.to(self.dtype) - constant(0.45, self.dtype)) / constant(0.225, self.dtype)
         features = [self.relu(self.bn1(self.conv1(x)))]
         x = self.maxpool(features[-1])
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):

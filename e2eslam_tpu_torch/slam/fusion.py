@@ -1,7 +1,8 @@
 """PointFusion: confidence-weighted surfel fusion into the fixed-capacity map.
 
 gradslam's PointFusion step (the reference's ``models["SLAM"].step``,
-``online_adaption.py:354-363``), as the JAX package's scatter fusion:
+``online_adaption.py:354-363``), as the JAX package's scatter fusion
+(``pointfusion_step``):
 
   1. project every valid map point into the live camera; candidates land
      in-frustum on a pixel with valid live depth;
@@ -14,12 +15,19 @@ gradslam's PointFusion step (the reference's ``models["SLAM"].step``,
      whose confidence is a Gaussian of the normalised pixel radius;
   5. live pixels no winner claimed are appended at the ``count`` cursor.
 
+The index fusion (``pointfusion_step_index``, ``MODEL.fusion_impl:
+index``) finds each live pixel's candidate by projecting it into the last
+fused keyframe's camera and reading that keyframe's cached index image:
+O(H*W) gathers and scatters, no pass over the map. ``index_nn`` is the 3D
+loss's association through the same image.
+
 The port runs fusion outside autograd and updates the map buffer in place.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -171,4 +179,166 @@ def pointfusion_step(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05
     live_rows = pack_rows(live.points, live.normals, live.colors, alpha)
     state.data[dest[ok]] = live_rows[ok]
     count = min(state.count + int(new_mask.sum()), N)
-    return MapState(data=state.data, count=count)
+    return dataclasses.replace(state, count=count)
+
+
+def _lookup(image: Tensor, pose: Tensor, live: FramePoints, frame: RGBDFrame):
+    """Each live pixel's slot in an index image taken from ``pose``: the
+    slot at the pixel its point projects to. Returns (slot [HW] int64, -1
+    none; found [HW])."""
+    H, W = frame.depth.shape[:2]
+    q, in_view = _project_pixels(live.points.detach(), pose, frame.intrinsics, H, W)
+    cand = image.index_select(0, q).long()
+    return cand, in_view & (cand >= 0) & (live.mask > 0)
+
+
+def index_nn(state: MapState, frame: RGBDFrame, *, levels: Optional[int] = None):
+    """3D-loss association through the cached index image
+    (``e2eslam_tpu/slam/fusion.py:188-231``): each live pixel's point is
+    projected into the last fused keyframe's camera and takes that pixel's
+    map slot. With two index levels, pixels the first misses fall back to
+    the second, unless ``levels`` is 1.
+
+    Returns (nn_idx [HW] int64 clipped to the buffer, found [HW] bool)."""
+    if state.index_image is None:
+        raise ValueError("index_nn needs a map with index images (MODEL.fusion_impl: index)")
+    cand, found = _index_candidates(state, frame, frame_pointcloud(frame),
+                                    second_level=levels is None or levels >= 2)
+    return cand.clamp(0, state.data.shape[0] - 1), found
+
+
+def _index_candidates(state: MapState, frame: RGBDFrame, live: FramePoints,
+                      search_radius: int = 0, second_level: bool = True):
+    """Index fusion's association (``e2eslam_tpu/slam/fusion.py:284-327``):
+    each live pixel's candidate slot from the last keyframe's index image,
+    the nearest of the (2r+1)^2 pixels around its projection with
+    ``search_radius`` r > 0, then, where the map keeps a second level and
+    ``second_level`` is set, that level's slot where the first has none.
+    Returns (slot [HW] int64, -1 none; has_cand [HW])."""
+    H, W = frame.depth.shape[:2]
+    N = state.data.shape[0]
+    valid = live.mask > 0
+    if search_radius > 0:
+        ui, vi, in_prev = _project_uv(live.points, state.index_pose, frame.intrinsics, H, W)
+        best_d = torch.full((H * W,), float("inf"), device=state.data.device)
+        cand = torch.full((H * W,), -1, dtype=torch.int64, device=state.data.device)
+        r = int(search_radius)
+        for dy in range(-r, r + 1):
+            for dx in range(-r, r + 1):
+                uo, vo = ui + dx, vi + dy
+                ok = in_prev & (uo >= 0) & (uo < W) & (vo >= 0) & (vo < H)
+                pix = vo.clamp(0, H - 1) * W + uo.clamp(0, W - 1)
+                cand_o = state.index_image.index_select(0, pix).long()
+                ok = ok & (cand_o >= 0) & valid
+                p_o = state.data.index_select(0, cand_o.clamp(0, N - 1))[:, 0:3]
+                d_o = torch.linalg.norm(live.points - p_o, dim=-1)
+                better = ok & (d_o < best_d)
+                best_d = torch.where(better, d_o, best_d)
+                cand = torch.where(better, cand_o, cand)
+        has_cand = cand >= 0
+    else:
+        cand, has_cand = _lookup(state.index_image, state.index_pose, live, frame)
+    if state.index_image2 is not None and second_level:
+        cand2, has2 = _lookup(state.index_image2, state.index_pose2, live, frame)
+        cand = torch.where(has_cand, cand, cand2)
+        has_cand = has_cand | has2
+    return cand, has_cand
+
+
+@torch.no_grad()
+def pointfusion_step_index(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05,
+                           angle_th: Optional[float] = 20.0, sigma: float = 0.6,
+                           level2_period: int = 1, search_radius: int = 0) -> MapState:
+    """Index-image PointFusion (``e2eslam_tpu/slam/fusion.py:234-412``), in
+    place on the map buffer. Returns the new state.
+
+    Each live pixel's candidate slot comes from ``_index_candidates``. A
+    similar candidate (distance below ``dist_th``, normal within
+    ``angle_th``) takes the confidence-weighted blend of itself and the
+    pixel; the other valid pixels are appended. The index image becomes
+    this keyframe's slots.
+
+    Several pixels may blend into one slot. The JAX package scatters their
+    rows with last-writer-wins, which XLA on the CPU resolves as the
+    highest pixel index winning the whole row; ``index_put_``'s order for
+    duplicate indices is unspecified on CUDA. So the winner is chosen
+    explicitly (a scatter-max of pixel ids per slot) and every write to a
+    slot carries its winner's row: duplicates write equal bytes, and the
+    result is the same on both devices and in every run.
+    """
+    H, W = frame.depth.shape[:2]
+    HW = H * W
+    N = state.data.shape[0]
+    if state.index_image is None:
+        raise ValueError("pointfusion_step_index needs empty_map(..., index_hw=H*W)")
+    dev = state.data.device
+    live = frame_pointcloud(frame)
+    alpha = _pixel_alpha(H, W, frame.intrinsics, sigma) * live.mask
+    valid = live.mask > 0
+
+    # ---- 1. associate through the index images, then gate ---------------
+    cand, has_cand = _index_candidates(state, frame, live, search_radius)
+    cand_c = cand.clamp(0, N - 1)
+    cand_rows = state.data.index_select(0, cand_c)  # one packed gather
+    m_pt, m_n, m_clr, c_cand = (cand_rows[:, 0:3], cand_rows[:, 3:6], cand_rows[:, 6:9],
+                                cand_rows[:, 9])
+    dist = torch.linalg.norm(live.points - m_pt, dim=-1)
+    similar = has_cand & (dist < dist_th)
+    if angle_th is not None:
+        similar = similar & ((live.normals * m_n).sum(dim=-1) > _cos_deg(angle_th))
+
+    # ---- 2. confidence-weighted blend, computed pixel-side ---------------
+    wsum = (c_cand + alpha).clamp(min=1e-12)
+
+    def blend(old, new):
+        return (c_cand[:, None] * old + alpha[:, None] * new) / wsum[:, None]
+
+    n_raw = blend(m_n, live.normals)
+    n2 = (n_raw * n_raw).sum(dim=-1, keepdim=True)
+    ok_n = n2 > 1e-24
+    f_n = torch.where(ok_n, n_raw / torch.where(ok_n, n2, torch.ones_like(n2)).sqrt(), n_raw)
+    fused_rows = pack_rows(blend(m_pt, live.points), f_n, blend(m_clr, live.colors), wsum)
+
+    # ---- 3. the appends of the unmatched valid pixels ---------------------
+    new_mask = valid & ~similar
+    order = torch.cumsum(new_mask.to(torch.int64), 0) - 1
+    dest = state.count + order
+    ok = new_mask & (dest < N)
+    live_rows = pack_rows(live.points, live.normals, live.colors, alpha)
+
+    # ---- 4. one scatter of merges and appends; duplicates carry the winner
+    # Merge targets are valid rows (below ``count``), appends lie past it.
+    pix_ids = torch.arange(HW, device=dev)
+    winner = torch.full((max(state.count, 1),), -1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, torch.where(similar, cand_c, 0),
+                           torch.where(similar, pix_ids, -1), "amax")
+    src = torch.where(similar, winner.index_select(0, torch.where(similar, cand_c, 0)), pix_ids)
+    rows = torch.where(similar[:, None], fused_rows.index_select(0, src.clamp(min=0)), live_rows)
+    writes = similar | ok
+    tgt = torch.where(similar, cand_c, dest)
+    # Pixels that write nothing repeat the last writer's write (or, with no
+    # writer at all, write row 0 back): a harmless duplicate.
+    last = torch.where(writes, pix_ids, -1).amax().view(1)
+    any_w = last >= 0
+    last = last.clamp(min=0)
+    sink_tgt = torch.where(any_w, tgt.index_select(0, last), 0)
+    sink_row = torch.where(any_w[:, None], rows.index_select(0, last), state.data[:1])
+    tgt = torch.where(writes, tgt, sink_tgt)
+    rows = torch.where(writes[:, None], rows, sink_row)
+    state.data.index_copy_(0, tgt, rows)
+    count = min(state.count + int(new_mask.sum()), N)
+
+    # ---- 5. this keyframe's index image; the second level ----------------
+    new_index = torch.where(similar, cand_c, torch.where(ok, dest, -1)).to(torch.int32)
+    pose = frame.pose.to(state.index_pose.dtype)
+    idx2, pose2, kctr = state.index_image2, state.index_pose2, state.kf_counter
+    if state.index_image2 is not None:
+        if level2_period <= 1 or kctr is None:
+            # Level 2 is the previous keyframe's image (one-keyframe gaps).
+            idx2, pose2 = state.index_image, state.index_pose
+        elif kctr % level2_period == 0:
+            # A slow level: every K-th keyframe's image, held K keyframes.
+            idx2, pose2 = new_index, pose
+        kctr = None if kctr is None else kctr + 1
+    return dataclasses.replace(state, count=count, index_image=new_index, index_pose=pose,
+                               index_image2=idx2, index_pose2=pose2, kf_counter=kctr)

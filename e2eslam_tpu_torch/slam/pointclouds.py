@@ -5,12 +5,20 @@ One ``[capacity, 16]`` float buffer holds each map point's fields in a row
 row to 64 bytes), the JAX package's layout. ``count`` rows at the front
 are valid; appends write at the ``count`` cursor. In the port the count is
 a host integer, read after each fusion.
+
+Index fusion (``MODEL.fusion_impl: index``) also keeps the last fused
+keyframe's per-pixel map slots (``index_image``, int32, -1 where no map
+point) with that keyframe's pose, and with ``MODEL.index_levels: 2`` a
+second, older level and a fused-keyframe counter (a host integer, as
+``count`` is). They are ``None`` unless the config needs them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -24,6 +32,11 @@ class MapState:
 
     data: Tensor  # [N, 16]
     count: int
+    index_image: Optional[Tensor] = None  # [H*W] int32 map slot per pixel, -1 none
+    index_pose: Optional[Tensor] = None  # [4, 4] pose of the index image's frame
+    index_image2: Optional[Tensor] = None  # the second level's slots
+    index_pose2: Optional[Tensor] = None
+    kf_counter: Optional[int] = None  # fused keyframes; present iff two levels
 
     @property
     def points(self) -> Tensor:  # [N, 3] world-frame positions
@@ -49,5 +62,36 @@ def pack_rows(points: Tensor, normals: Tensor, colors: Tensor,
     return torch.cat([points, normals, colors, confidence[:, None], pad], dim=-1)
 
 
-def empty_map(capacity: int, device=None) -> MapState:
-    return MapState(data=torch.zeros(capacity, ROW, device=device), count=0)
+def empty_map(capacity: int, device=None, index_hw: Optional[int] = None,
+              index_levels: int = 1) -> MapState:
+    """An empty map; with ``index_hw`` the index images (filled with -1)
+    and identity poses of ``index_levels`` levels (1 or 2)."""
+    def image():
+        return torch.full((index_hw,), -1, dtype=torch.int32, device=device)
+
+    def pose():
+        return torch.eye(4, device=device)
+
+    index = index_hw is not None
+    two = index and index_levels >= 2
+    return MapState(data=torch.zeros(capacity, ROW, device=device), count=0,
+                    index_image=image() if index else None,
+                    index_pose=pose() if index else None,
+                    index_image2=image() if two else None,
+                    index_pose2=pose() if two else None,
+                    kf_counter=0 if two else None)
+
+
+def map_from_arrays(fields, device=None) -> MapState:
+    """A map from host arrays named as ``MapState``'s fields (a mapping, for
+    example a JAX package map's ``_asdict()`` moved to numpy): the packed
+    rows, the count, and the index images, poses and counter where present."""
+    def tensor(name):
+        value = fields.get(name)
+        return None if value is None else torch.as_tensor(np.array(value), device=device)
+
+    counter = fields.get("kf_counter")
+    return MapState(data=tensor("data"), count=int(fields["count"]),
+                    index_image=tensor("index_image"), index_pose=tensor("index_pose"),
+                    index_image2=tensor("index_image2"), index_pose2=tensor("index_pose2"),
+                    kf_counter=None if counter is None else int(counter))

@@ -380,3 +380,50 @@ def test_resident_kernel_at_the_map_to_frame_shape(card, nq_cut):
     assert [k.launches - b for k, b in zip(K.KERNELS, before)] == [0, 0, 1]
     if nq:
         assert torch.equal(i[:nq], i_k[:nq])
+
+
+def _shared_slot_map(device):
+    """A plane at 2 m seen head-on, and a 64-point map whose index image
+    gives every 8x8 block of pixels one slot: up to 64 similar pixels blend
+    into each slot."""
+    from e2eslam_tpu_torch.slam.fusion import frame_pointcloud
+    from e2eslam_tpu_torch.slam.pointclouds import map_from_arrays
+    from e2eslam_tpu_torch.slam.rgbd import build_frame
+
+    H = W = 64
+    rng = np.random.default_rng(3)
+    K4 = torch.tensor([[50.0, 0, 32, 0], [0, 50.0, 32, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    color = torch.from_numpy(rng.random((H, W, 3)).astype(np.float32))
+    frame = build_frame(color.to(device), torch.full((H, W, 1), 2.0, device=device),
+                        K4.to(device), torch.eye(4, device=device))
+    live = frame_pointcloud(frame)
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    slot = ((ys // 8) * (W // 8) + xs // 8).reshape(-1).astype(np.int32)
+    centre = ((np.arange(64) // 8) * 8 + 4) * W + (np.arange(64) % 8) * 8 + 4
+    data = np.zeros((64 + H * W, 16), np.float32)
+    data[:64, 0:3] = live.points.cpu().numpy()[centre] + 0.01 * rng.normal(size=(64, 3))
+    data[:64, 3:6] = live.normals.cpu().numpy()[centre]
+    data[:64, 6:9] = rng.random((64, 3))
+    data[:64, 9] = rng.uniform(0.5, 3.0, 64)
+    fields = dict(data=data, count=64, index_image=slot, index_pose=np.eye(4, dtype=np.float32))
+    return map_from_arrays(fields, device=device), frame
+
+
+@pytest.mark.cuda
+def test_index_fusion_on_the_card_matches_the_cpu(card):
+    """Index fusion where many pixels share slots: the card's result equals
+    the CPU's (index images and counts equal, rows to 1e-6, float32 blends
+    in another order), and two card runs give the same bytes (duplicate
+    slots resolve by the highest pixel, not by the order of writes)."""
+    from e2eslam_tpu_torch.slam.fusion import pointfusion_step_index
+
+    runs = []
+    for device in (card, card, torch.device("cpu")):
+        m, frame = _shared_slot_map(device)
+        runs.append(pointfusion_step_index(m, frame, dist_th=1.0))
+    a, b, c = runs
+    assert torch.equal(a.data, b.data) and torch.equal(a.index_image, b.index_image)
+    assert a.count == c.count
+    assert torch.equal(a.index_image.cpu(), c.index_image)
+    assert bool((a.index_image < 64).sum() > 3000)  # most pixels merged
+    torch.testing.assert_close(a.data.cpu()[: a.count], c.data[: c.count], rtol=0, atol=1e-6)

@@ -167,15 +167,25 @@ def test_online_adaptation_matches_jax(sequence_length):
 def test_unported_settings_are_refused():
     from e2eslam_tpu_torch.engine.refine import validate_config
 
-    refused = {"LOSS.knn_impl": "voxel", "MODEL.fusion_impl": "index",
-               "MODEL.active_window": 4096, "MODEL.compact_period": 4,
-               "MODEL.compact_voxel": 0.01, "OPTIMIZATION.refinement": "OFT",
-               "OPTIMIZATION.fused_update": True, "SETTINGS.compute_dtype": "bfloat16",
-               "DATA.use_gt_pose": False}
+    refused = {"LOSS.knn_impl": "voxel", "MODEL.active_window": 4096,
+               "MODEL.compact_period": 4, "MODEL.compact_voxel": 0.01,
+               "OPTIMIZATION.refinement": "OFT", "DATA.use_gt_pose": False}
     for key, value in refused.items():
         with pytest.raises(NotImplementedError):
             validate_config(_cfg(load_yaml, default_config_path(), **{key: value}))
-    ported = {"LOSS.chamfer_distance": True, "LOSS.knn_points": True, "LOSS.geometric": True,
+    for impl in ("projective", "voxel"):
+        with pytest.raises(NotImplementedError):
+            validate_config(_cfg(load_yaml, default_config_path(), **{
+                "LOSS.knn_impl": impl, "MODEL.fusion_impl": "index"}))
+    with pytest.raises(NotImplementedError):
+        validate_config(_cfg(load_yaml, default_config_path(), **{
+            "OPTIMIZATION.refinement": "SCALE"}))
+    # The JAX package's inconsistent pair: index association, scatter fusion.
+    with pytest.raises(ValueError):
+        validate_config(_cfg(load_yaml, default_config_path(), **{"LOSS.knn_impl": "index"}))
+    ported = {"LOSS.knn_impl": "index", "MODEL.fusion_impl": "index",
+              "OPTIMIZATION.fused_update": True, "SETTINGS.compute_dtype": "bfloat16",
+              "LOSS.chamfer_distance": True, "LOSS.knn_points": True, "LOSS.geometric": True,
               "LOSS.smoothness": True, "LOSS.depth_regularizer": True,
               "LOSS.supervise_depth": True, "LOSS.auto_masking": True,
               "LOSS.min_reprojection": True, "LOSS.three3d_texture_gate": 600.0,
