@@ -54,17 +54,36 @@ Phases (any failure ends the script with a non-zero exit):
               (the JAX package's TPU run, BENCH_r05.json: a sanity band);
               the last keyframe's frame fused twice into copies of the
               final map: equal bytes;
-  8. small    the default path, the chamfer one, index fusion and
-              association (float32) and the flagship settings at 64x64 on
-              the card, with deterministic algorithms and with the default
-              ones, and on the CPU (plain versions): the same keyframes,
-              abs_rel and map size (``SMALL_CONFIGS``: float32 tolerances,
-              and for bf16 twice the widest gaps of repeated card runs,
+  8. gradicp  the JAX package's trajectory row (bench.py:161-176: the
+              flagship with gradICP odometry), all 60 frames after a 4-frame
+              warm-up, default then deterministic algorithms: 59 keyframes,
+              rigid estimated poses off the dataset's, ATE under 5.4% of the
+              keyframe trajectory and RPE under 0.10 (tests/test_apps.py:
+              74-102), mean abs_rel in (0, 0.5), no KNN launch; the JAX
+              package's TPU row is printed as a reference line, not a check;
+     odom_brute  12 frames of configs/config.yaml with gradICP odometry (the
+              map the KNN kernels search is misregistered by it), with and
+              without three3d_debias: every KNN call held against its plain
+              version, ATE and RPE reported;
+     est_pose 6 frames with DATA.use_gt_pose: false (gradICP inside every
+              PFT step): finite losses and gradients on every step, and
+              _source_transform on each keyframe window, card against CPU;
+  9. assoc    12 frames each with LOSS.knn_impl projective and voxel (no KNN
+              launch; the voxel found share reported) and with
+              MODEL.active_window 200,000 (its KNN calls held against their
+              plain versions);
+ 10. small    the default path, the chamfer one, index fusion and
+              association (float32), the flagship settings, gradICP and the
+              voxel association at 64x64 on the card, with deterministic
+              algorithms and with the default ones, and on the CPU (plain
+              versions): the same keyframes, abs_rel and map size
+              (``SMALL_CONFIGS``: float32 tolerances, and for bf16, gradICP
+              and voxel twice the widest gaps of repeated card runs,
               ``python3 chip_smoke.py --small-repeats N [config ...]``, which
               runs only this phase, N times, and reports the gaps).
 The second-to-last line is the kernels' JSON line (the resident kernel has
-a second entry, ``"call": "chamfer b->a"``, for its map->frame calls), the
-last line the result.
+a second entry, ``"call": "chamfer b->a"``, for its map->frame calls; each
+entry counts its launches per path), the last line the result.
 Kernel and plain version must agree to the float32 rounding bound of the
 score (``fp32_distance_bound`` in ops/knn.py, from the rows picked); where
 their indices differ, each check line reports the float64 distance gaps
@@ -87,6 +106,7 @@ The weights are random, drawn from a seed; the data is the synthetic scene.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -678,6 +698,24 @@ def route_options(knn, args, resident_out):
             fail("the candidate route picked another neighbour where it is unique")
 
 
+def hold_calls(knn, rec, stats, label):
+    """Every KNN call a Recorder kept (``keep_all``) against its plain
+    version; one summary line per kernel, tagged with ``label``'s keys."""
+    held = {}
+    tag = " ".join(str(v) for v in label.values())
+    for key, args in rec.all:
+        chk = compare_call(knn, key, args, tag, stats, report=False)[2]
+        h = held.setdefault(key, {**label, "kernel": key, "calls_held": 0, "max_abs_err": 0.0,
+                                  "max_err_over_tol": 0.0, "index_mismatches": 0,
+                                  "mismatch_gap_over_tol_max": 0.0})
+        h["calls_held"] += 1
+        for k in ("max_abs_err", "max_err_over_tol", "mismatch_gap_over_tol_max"):
+            h[k] = max(h[k], chk[k])
+        h["index_mismatches"] += chk["index_mismatches"]
+    for h in held.values():
+        print(json.dumps(h), flush=True)
+
+
 def phase_losses(knn, stats):
     """The PFT loss family beyond the default path, at full width, in two
     runs, each with its own launch counts; every KNN call of each run is
@@ -724,19 +762,7 @@ def phase_losses(knn, stats):
             fail(f"losses ({net}): {rec.warm_dense} warm calls took the dense kernel")
         # Every call of the run (regathered maps, cross-keyframe seeds)
         # against its plain version: one line per kernel.
-        held = {}
-        for key, args in rec.all:
-            chk = compare_call(knn, key, args, f"losses {net}", stats, report=False)[2]
-            h = held.setdefault(key, {"phase": "losses", "network": net, "kernel": key,
-                                      "calls_held": 0, "max_abs_err": 0.0,
-                                      "max_err_over_tol": 0.0, "index_mismatches": 0,
-                                      "mismatch_gap_over_tol_max": 0.0})
-            h["calls_held"] += 1
-            for k in ("max_abs_err", "max_err_over_tol", "mismatch_gap_over_tol_max"):
-                h[k] = max(h[k], chk[k])
-            h["index_mismatches"] += chk["index_mismatches"]
-        for h in held.values():
-            print(json.dumps(h), flush=True)
+        hold_calls(knn, rec, stats, {"phase": "losses", "network": net})
         return launches
 
     a = run(12)
@@ -749,6 +775,25 @@ def phase_losses(knn, stats):
 FLAGSHIP_KEYFRAMES = 59
 FLAGSHIP_ABS_REL = (0.065, 0.090)
 FLAGSHIP_MAP = 3_968_833
+
+
+@contextlib.contextmanager
+def algorithms(deterministic):
+    """With ``deterministic``, deterministic algorithms (warnings only) and
+    deterministic cuDNN inside the block; the flags are restored after."""
+    import torch
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    if deterministic:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+        torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
 
 
 def phase_flagship(knn, smi):
@@ -778,17 +823,8 @@ def phase_flagship(knn, smi):
         runner = OnlineAdaptation(flagship_config(load_yaml(default_config_path())))
         for k in knn.KERNELS:
             k.launches = 0
-        flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-                 torch.are_deterministic_algorithms_enabled(),
-                 torch.is_deterministic_algorithms_warn_only_enabled())
-        if deterministic:
-            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-            torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
+        with algorithms(deterministic):
             result = runner.run(verbose=False)
-        finally:
-            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
-            torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
         launches = launch_counts(knn)
         algos = "deterministic" if deterministic else "default"
         print(json.dumps({"phase": "flagship", "algorithms": algos,
@@ -864,6 +900,277 @@ def fusion_determinism(runner, result):
     if not all(same.values()):
         fail(f"fusion is not deterministic on the card: {same}")
 
+# The JAX package's TPU run of the gradicp row (BENCH_r05.json:19-23): a
+# reference line, not a check and not a target.
+JAX_GRADICP_ROW = {"ate": 0.071376, "rpe": 0.021508, "abs_rel": 0.0919, "keyframes": 59,
+                   "source": "BENCH_r05.json:19-23 (TPU)"}
+
+
+def trajectory(tag, result, ate_share=None, rpe_max=None):
+    """The estimated keyframe poses' checks: rotations orthonormal to 1e-3,
+    poses that differ from the dataset's (the odometry ran), finite ATE and
+    RPE; with ``ate_share``, ATE under that share of the keyframe
+    trajectory's length, and RPE under ``rpe_max`` (tests/test_apps.py:74-102,
+    the JAX package's own bar). Returns the trajectory's length."""
+    import numpy as np
+
+    est, gt = result["est_poses"], result["gt_kf_poses"]
+    R = est[:, :3, :3]
+    orth = float(np.abs(np.einsum("nij,nkj->nik", R, R) - np.eye(3)).max())
+    moved = float(np.abs(est - gt).max())
+    length = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum())
+    if not orth < 1e-3:
+        fail(f"{tag}: estimated rotations off orthonormal by {orth:.3g}")
+    if not moved > 1e-4:
+        fail(f"{tag}: the estimated poses equal the dataset's (largest gap {moved:.3g})")
+    if not (_finite(result["ate"]) and _finite(result["rpe"])):
+        fail(f"{tag}: ATE {result['ate']} or RPE {result['rpe']} not finite")
+    if ate_share is not None and not result["ate"] < ate_share * length:
+        fail(f"{tag}: ATE {result['ate']:.4f} m is not under {ate_share:.1%} of the "
+             f"{length:.3f} m trajectory")
+    if rpe_max is not None and not result["rpe"] < rpe_max:
+        fail(f"{tag}: RPE {result['rpe']:.4f} is not under {rpe_max}")
+    return length
+
+
+def phase_gradicp(knn, smi):
+    """The slice's full-width path: the JAX package's trajectory row
+    (bench.py:161-176, ``profile_adaptation.gradicp_config``: the flagship
+    with gradICP odometry), all 60 frames at 320x256 after a 4-frame
+    warm-up, with the default algorithms and then deterministic ones: 59
+    keyframes, rigid estimated poses off the dataset's, ATE under 5.4% of
+    the keyframe trajectory and RPE under 0.10, mean abs_rel in (0, 0.5),
+    no KNN launch. Returns the launches per kernel over both runs."""
+    import torch
+
+    from e2eslam_tpu_torch.apps.profile_adaptation import gradicp_config
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    warm = gradicp_config(load_yaml(default_config_path()))
+    warm.DEMO.sequence_length = 4
+    OnlineAdaptation(warm).run(verbose=False)
+    print(json.dumps({"phase": "gradicp", "reference": JAX_GRADICP_ROW}), flush=True)
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    for deterministic in (False, True):
+        runner = OnlineAdaptation(gradicp_config(load_yaml(default_config_path())))
+        for k in knn.KERNELS:
+            k.launches = 0
+        with algorithms(deterministic):
+            result = runner.run(verbose=False)
+        launches = launch_counts(knn)
+        algos = "deterministic" if deterministic else "default"
+        tag = f"gradicp ({algos})"
+        length = trajectory(tag, result, ate_share=0.054, rpe_max=0.10)
+        print(json.dumps({"phase": "gradicp", "algorithms": algos,
+                          "keyframes": result["num_keyframes"],
+                          "refine_steps": result["refine_steps"],
+                          "steps_per_sec": result["steps_per_sec"],
+                          "elapsed_s": result["elapsed_s"], "ate": result["ate"],
+                          "rpe": result["rpe"], "trajectory_m": length,
+                          "ate_share": result["ate"] / length,
+                          "mean_abs_rel": result["mean_abs_rel"],
+                          "map_points": result["map_points"], "launches": launches,
+                          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
+              flush=True)
+        losses = [m["total_loss"] for m in result["metrics"]]
+        if not result["metrics"] or not all(map(_finite, losses)):
+            fail(f"{tag}: non-finite or missing losses: {losses}")
+        if result["num_keyframes"] != FLAGSHIP_KEYFRAMES:
+            fail(f"{tag}: {result['num_keyframes']} keyframes, not {FLAGSHIP_KEYFRAMES}")
+        if not 0.0 < result["mean_abs_rel"] < 0.5:
+            fail(f"{tag}: mean abs_rel {result['mean_abs_rel']}")
+        if any(launches.values()):
+            fail(f"{tag}: the index path launched KNN kernels {launches}")
+        total = {key: total[key] + launches[key] for key in total}
+    return total
+
+
+def _default_run(knn, stats, phase, frames, label, *, knn_path, **settings):
+    """``frames`` frames of configs/config.yaml with ``settings`` (a dict
+    of ``SECTION.key``: value) at full width, its launches counted apart:
+    finite loss terms, mean abs_rel in (0, 0.5). With ``knn_path`` the run
+    must launch the resident and candidate kernels and no warm dense call,
+    and every KNN call it made is held against its plain version; without,
+    it must launch none. Returns (result, launches, runner)."""
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    cfg = load_yaml(default_config_path())
+    cfg.DEMO.sequence_length = frames
+    for key, value in settings.items():
+        section, flag = key.split(".")
+        cfg[section][flag] = value
+    runner = OnlineAdaptation(cfg)
+    for k in knn.KERNELS:
+        k.launches = 0
+    with Recorder(knn, keep_all=True) as rec:
+        result = runner.run(verbose=False)
+    launches = launch_counts(knn)
+    tag = f"{phase} ({' '.join(str(v) for v in label.values())})"
+    terms = [k for k in ("total_loss", "photometric", "three3d", "chamfer")
+             if k in result["metrics"][-1]]
+    bad = [(i, k) for i, m in enumerate(result["metrics"]) for k in terms if not _finite(m[k])]
+    if not result["metrics"] or bad:
+        fail(f"{tag}: non-finite or missing terms {bad[:5]}")
+    if not 0.0 < result["mean_abs_rel"] < 0.5:
+        fail(f"{tag}: mean abs_rel {result['mean_abs_rel']}")
+    if knn_path:
+        for key in ("cand", "resident"):
+            if launches[key] == 0:
+                fail(f"{tag}: the run launched no {key} kernel")
+        if rec.warm_dense:
+            fail(f"{tag}: {rec.warm_dense} warm calls took the dense kernel")
+    elif any(launches.values()):
+        fail(f"{tag}: the path launched KNN kernels {launches}")
+    line = {"phase": phase, **label, "frames": frames, "keyframes": result["num_keyframes"],
+            "mean_abs_rel": result["mean_abs_rel"], "map_points": result["map_points"],
+            "steps_per_sec": result["steps_per_sec"], "ate": result["ate"],
+            "rpe": result["rpe"], "launches": launches,
+            "last": {k: result["metrics"][-1][k] for k in terms}}
+    print(json.dumps(line), flush=True)
+    if knn_path:
+        hold_calls(knn, rec, stats, {"phase": phase, **label})
+    return result, launches, runner
+
+
+def _add(a, b):
+    return {key: a[key] + b[key] for key in a}
+
+
+def phase_odom_brute(knn, stats):
+    """configs/config.yaml with gradICP odometry, 12 frames, the brute
+    three3d loss: each keyframe is fused at its estimated pose, so the map
+    the resident (tail seed) and candidate (warm) kernels search is
+    misregistered by the odometry. Once with ``LOSS.three3d_debias`` and
+    once without; ATE and RPE reported, every KNN call held against its
+    plain version. Returns the launches per kernel over both runs."""
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    for debias in (True, False):
+        result, launches, _ = _default_run(
+            knn, stats, "odom_brute", 12, {"debias": debias}, knn_path=True,
+            **{"MODEL.odom": "gradicp", "LOSS.three3d_debias": debias})
+        trajectory(f"odom_brute (debias {debias})", result)
+        total = _add(total, launches)
+    return total
+
+
+# _source_transform's pose on the card against the CPU's on the same
+# frozen inputs, the largest entry gap over the run's 5 keyframe windows:
+# twice the widest seen on an H100 (2.46e-4; the gaps repeat from call to
+# call: the projective association rounds K.p/z, and a last-bit difference
+# between the card's and the CPU's float32 moves a pixel; PERF.md §6).
+EST_POSE_TOL = 5e-4
+
+
+def phase_est_pose(knn, stats):
+    """configs/config.yaml with ``DATA.use_gt_pose: false`` and gradICP
+    odometry, 6 frames: view synthesis through 20 Levenberg-Marquardt
+    iterations inside every PFT step, the photometric gradient flowing
+    back through them into the network. Finite losses and finite
+    gradients on every step, mean abs_rel in (0, 0.5); the three3d loss is
+    the brute one, so its KNN calls are held against their plain versions.
+    First ``_source_transform`` on each keyframe window with the seeded
+    network's depths, card against CPU (``EST_POSE_TOL``). Returns the
+    launches per kernel."""
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.data.pipeline import load_batch
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation, keyframe_schedule
+    from e2eslam_tpu_torch.engine.refine import PairBatch, RefinementEngine
+
+    settings = {"DATA.use_gt_pose": False, "MODEL.odom": "gradicp"}
+    frames = 6
+    cfg = load_yaml(default_config_path())
+    cfg.DEMO.sequence_length = frames
+    for key, value in settings.items():
+        section, flag = key.split(".")
+        cfg[section][flag] = value
+    # The frozen inputs: each keyframe window, the seeded network's depths.
+    probe = OnlineAdaptation(cfg)
+    eng = probe.engine
+    colors, gt, K, poses, _ = load_batch(probe.dataset, [0])
+    gaps = []
+    for prev, frame in keyframe_schedule(poses[0], float(cfg.DEMO.frame_threshold)):
+        pair = PairBatch(*(torch.from_numpy(x) for x in (
+            colors[0][[prev, frame]], gt[0][[prev, frame]], K[0], poses[0][[prev, frame]])))
+        with torch.no_grad():
+            dev_pair = PairBatch(*(t.to(eng.device) for t in pair))
+            depth = eng.apply_scaling(eng.forward_depths(dev_pair.colors)[1],
+                                      dev_pair.gt_depths, dev_pair.intrinsics)
+            T_card = eng._source_transform(dev_pair, depth, 0).cpu()
+            T_cpu = RefinementEngine._source_transform(eng, pair, depth.cpu(), 0)
+        gaps.append(float((T_card - T_cpu).abs().max()))
+    print(json.dumps({"phase": "est_pose", "check": "_source_transform card vs cpu",
+                      "windows": len(gaps), "max_abs_gap": gaps, "tol": EST_POSE_TOL}),
+          flush=True)
+    if not max(gaps) <= EST_POSE_TOL:
+        fail(f"est_pose: _source_transform on the card differs from the CPU's by {max(gaps):.3g}")
+    del probe, eng
+
+    # Every step's gradients: one device flag a step (a global optimizer
+    # pre-hook), read after the run.
+    flags = []
+
+    def check(opt, args, kwargs):
+        grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
+        flags.append(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+
+    hook = register_optimizer_step_pre_hook(check)
+    try:
+        result, launches, _ = _default_run(knn, stats, "est_pose", frames,
+                                           {"odom": "gradicp"}, knn_path=True, **settings)
+    finally:
+        hook.remove()
+    if len(flags) != result["refine_steps"] or not bool(torch.stack(flags).all()):
+        fail(f"est_pose: non-finite gradients in {len(flags)} steps "
+             f"({result['refine_steps']} run)")
+    print(json.dumps({"phase": "est_pose", "steps_with_finite_gradients": len(flags)}),
+          flush=True)
+    return launches
+
+
+def phase_assoc(knn, stats):
+    """The other 3D-loss associations, 12 frames each of configs/config.yaml
+    at full width: ``LOSS.knn_impl: projective``, ``voxel`` (the share of
+    queries the voxel hash found a neighbour for is reported), and scatter
+    fusion within ``MODEL.active_window: 200000`` with the brute loss, whose
+    KNN calls are held against their plain versions. Returns the launches
+    per kernel over the three runs."""
+    import torch
+
+    from e2eslam_tpu_torch.engine import refine
+
+    found = []
+    orig = refine.voxel_knn
+
+    def recorded(*a, **kw):
+        out = orig(*a, **kw)
+        found.append(out[2].float().mean())
+        return out
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    for impl in ("projective", "voxel"):
+        refine.voxel_knn = recorded
+        try:
+            _, launches, runner = _default_run(knn, stats, "assoc", 12, {"knn_impl": impl},
+                                               knn_path=False, **{"LOSS.knn_impl": impl})
+        finally:
+            refine.voxel_knn = orig
+        total = _add(total, launches)
+    # The first keyframe's steps search the empty map.
+    share = torch.stack(found[runner.engine.refinement_steps:])
+    if not share.numel():
+        fail("assoc (voxel): no voxel search of a non-empty map ran")
+    print(json.dumps({"phase": "assoc", "knn_impl": "voxel", "searches": share.numel(),
+                      "found_share_mean": float(share.mean()),
+                      "found_share_min": float(share.min())}), flush=True)
+    _, launches, _ = _default_run(knn, stats, "assoc", 12, {"active_window": 200000},
+                                  knn_path=True, **{"MODEL.active_window": 200000})
+    return _add(total, launches)
+
 
 def _finite(x) -> bool:
     return x == x and abs(x) != float("inf")
@@ -904,11 +1211,26 @@ F32_TOL = {"first": 1e-3, "later": 5e-2, "mean": 5e-2, "map": 1e-2}
 # (``python3 chip_smoke.py --small-repeats 10 flagship``, twice: 0.89%,
 # 4.24%, 1.94%, 0.70%; PERF.md §6).
 BF16_TOL = {"first": 0.018, "later": 0.085, "mean": 0.039, "map": 0.014}
+def _small_gradicp(cfg):
+    """The default path with gradICP odometry (the odom_brute path)."""
+    cfg.MODEL.odom = "gradicp"
+    return cfg
+
+
+# gradICP odometry and the voxel association against the CPU: twice the
+# widest gaps over 20 card runs on an H100 (``python3 chip_smoke.py
+# --small-repeats 10 gradicp voxel``, twice: gradicp 7.6e-7, 1.09e-5,
+# 0.30%, 0.38%; voxel 7.6e-7, 2.0e-6, 1.6e-5, 0; PERF.md §6). A map
+# tolerance of 0 leaves the check's floor of 4 points.
+GRADICP_TOL = {"first": 1.6e-6, "later": 2.2e-5, "mean": 0.0061, "map": 0.0076}
+VOXEL_TOL = {"first": 1.6e-6, "later": 4e-6, "mean": 3.3e-5, "map": 0.0}
 SMALL_CONFIGS = {
     "default": (_small_loss(), F32_TOL),
     "chamfer": (_small_loss(three3d_loss=False, chamfer_distance=True), F32_TOL),
     "index": (_small_index, F32_TOL),
     "flagship": (_small_flagship, BF16_TOL),
+    "gradicp": (_small_gradicp, GRADICP_TOL),
+    "voxel": (_small_loss(knn_impl="voxel"), VOXEL_TOL),
 }
 
 
@@ -916,8 +1238,6 @@ def phase_small(name, check=True):
     """A path at 64x64: card (kernels, cuDNN) vs CPU (plain versions).
     Returns the gaps the tolerances hold; with ``check`` off it only
     measures them."""
-    import torch
-
     from e2eslam_tpu_torch.config import default_config_path, load_yaml
     from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
 
@@ -936,16 +1256,8 @@ def phase_small(name, check=True):
     # trajectory vary from run to run (mean abs_rel 0.0715-0.0735 over 30
     # runs on an H100 against the CPU's 0.0733), now and then past the 5%
     # bound below at the last keyframe.
-    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-             torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
+    with algorithms(True):
         a = run("cuda")
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
-        torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
     d = run("cuda")  # the default algorithms, as the main path runs
     b = run("cpu")
 
@@ -1050,7 +1362,13 @@ def main(argv) -> int:
     losses_launches = phase_losses(knn, stats)
     # 7. the flagship configuration, then fusion's determinism
     flagship_launches = phase_flagship(knn, smi)
-    # 8. small input, card vs CPU
+    # 8. estimated odometry: the gradicp row, the brute path, view synthesis
+    gradicp_launches = phase_gradicp(knn, smi)
+    odom_brute_launches = phase_odom_brute(knn, stats)
+    est_pose_launches = phase_est_pose(knn, stats)
+    # 9. the projective, voxel and active-window associations
+    assoc_launches = phase_assoc(knn, stats)
+    # 10. small input, card vs CPU
     for config in SMALL_CONFIGS:
         phase_small(config)
 
@@ -1068,6 +1386,10 @@ def main(argv) -> int:
                         "chamfer_launches": chamfer_launches[key],
                         "losses_launches": losses_launches[key],
                         "flagship_launches": flagship_launches[key],
+                        "gradicp_launches": gradicp_launches[key],
+                        "odom_brute_launches": odom_brute_launches[key],
+                        "est_pose_launches": est_pose_launches[key],
+                        "assoc_launches": assoc_launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                         "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),

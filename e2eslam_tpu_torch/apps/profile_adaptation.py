@@ -1,7 +1,8 @@
 """Measure online adaptation on one CUDA card: steps/s, quality, where the time goes.
 
     python -m e2eslam_tpu_torch.apps.profile_adaptation \\
-        [--config_path configs/config.yaml] [--workload config|chamfer|flagship]
+        [--config_path configs/config.yaml]
+        [--workload config|chamfer|flagship|gradicp]
         [--set SECTION.key=value ...] [--runs 1] [--deterministic]
         [--profile_frames 12] [--out DIR]
 
@@ -14,12 +15,15 @@ seeded weights, after the kernels are built:
      ``--deterministic``: with deterministic algorithms and cuDNN, whose
      runs repeat);
   3. ``--profile_frames`` frames under ``torch.profiler``: device time by
-     kernel family, and the device's idle share over the adaptation loop
-     (1 - kernel time / the run's own clock, profiler overhead included).
+     kernel family, the device's launches (kernels and copies), and the
+     device's idle share over the adaptation loop (1 - kernel time / the
+     run's own clock, profiler overhead included).
 ``--workload chamfer`` applies tools/bench_exact.py's TUM chamfer row to
 the config (``chamfer_config``), ``--workload flagship`` the JAX package's
 benchmark configuration (``flagship_config``: index fusion and
-association, the bf16 CNN, the fused Adam). Prints one JSON object per
+association, the bf16 CNN, the fused Adam), ``--workload gradicp`` its
+trajectory row (``gradicp_config``: the same with gradICP odometry; the
+run's ATE and RPE are reported too). Prints one JSON object per
 run; with ``--out DIR`` also writes them to ``DIR/profile.json``.
 ``--set`` overrides a setting after the workload's (a YAML value, e.g.
 ``--set SETTINGS.compute_dtype=float32``).
@@ -116,8 +120,19 @@ def flagship_config(cfg):
     return cfg
 
 
+def gradicp_config(cfg):
+    """The JAX package's trajectory row, ``bench.py:161-176``: the flagship
+    configuration with the reference's default odometry, ``MODEL.odom:
+    gradicp`` (20 iterations, every 4th pixel, 0.2 m gate). View synthesis
+    keeps the dataset's poses; each keyframe is fused at its gradICP
+    estimate, anchored to the previous keyframe's dataset pose."""
+    cfg = flagship_config(cfg)
+    cfg.MODEL.odom = "gradicp"
+    return cfg
+
+
 WORKLOADS = {"config": lambda cfg: cfg, "chamfer": chamfer_config,
-             "flagship": flagship_config}
+             "flagship": flagship_config, "gradicp": gradicp_config}
 
 
 def _config(path, workload="config", frames=None, overrides=()):
@@ -143,6 +158,8 @@ def _run(cfg):
         "steps_per_sec": result["steps_per_sec"],
         "mean_abs_rel": result["mean_abs_rel"],
         "map_points": result["map_points"],
+        "ate": result["ate"],
+        "rpe": result["rpe"],
         "launches": {k.__name__: k.launches for k in knn_ops.KERNELS},
     }
 
@@ -188,6 +205,7 @@ def main(argv=None):
     wall_ms = profiled["elapsed_s"] * 1e3
     fam, kernels = {}, []
     busy_us = 0.0
+    launches = 0
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -196,12 +214,14 @@ def main(argv=None):
                 or getattr(evt, "is_user_annotation", False) or "#" in evt.key):
             continue  # annotations span kernels already counted
         busy_us += dev_us
+        launches += evt.count
         fam[_family(evt.key)] = fam.get(_family(evt.key), 0.0) + dev_us / 1e3
         kernels.append((dev_us / 1e3, evt.count, evt.key[:90]))
     kernels.sort(reverse=True)
     profiled.update({
         "wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3,
+        "device_launches": launches,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
         "device_ms_by_family": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms_count": kernels[:15],

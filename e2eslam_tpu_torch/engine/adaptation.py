@@ -88,11 +88,12 @@ class OnlineAdaptation:
         self.engine = RefinementEngine(config, model, map_capacity=self.capacity,
                                        device=self.device)
         L = config.LOSS
-        # The brute KNN's sorted, bucketed map view; the index association
-        # (LOSS.knn_impl: index) has no sort, no bucket and no seeds.
+        # The brute KNN's sorted, bucketed map view; the other associations
+        # have no sort, no bucket and no seeds (the voxel hash is rebuilt
+        # over the whole map each keyframe).
         self._bucketed_sort = (bool(L.get("knn_spatial_sort", True))
                                and bool(L.get("knn_bucket", True))
-                               and self.engine.point_losses and not self.engine.index_assoc)
+                               and self.engine.point_losses and self.engine.knn_impl == "brute")
         self._sort_cache = None  # {perm, inv, bucket, age, known}
 
     def _bucket(self, count: int, first: bool, last: int) -> int:

@@ -3,16 +3,20 @@
 The PFT path of ``e2eslam_tpu/engine/refine.py``: per keyframe window, R
 steps of parameter fine-tuning (PFT) of the depth network -- batched depth
 forward (indoor or monodepth2, optionally the dual-disparity blend), depth
-scaling, gt-pose view synthesis, then the loss family of
+scaling, view synthesis with the dataset's poses or, with
+``DATA.use_gt_pose: false``, poses estimated by ICP on the predicted depths
+inside the step, then the loss family of
 ``RefinementEngine._assemble_losses``: the photometric loss (masked,
 auto-masked, min-reprojection), the geometric, smoothness,
 depth-regularizer and sparse-supervision terms, and the end-to-end 3D point
 losses against the global map (three3d or its ``knn_points`` alias, and the
 bidirectional chamfer) -- then fusion of the newest keyframe pair into the
-map. The 3D losses find their neighbours by the exact brute-force KNN
-(``LOSS.knn_impl: brute``) or through the last fused keyframe's cached
-index image (``index``, with ``MODEL.fusion_impl: index``: gathers only, no
-KNN).
+map at the configured odometry's pose. The 3D losses find their neighbours
+by the exact brute-force KNN (``LOSS.knn_impl: brute``), through the last
+fused keyframe's cached index image (``index``, with ``MODEL.fusion_impl:
+index``), by projecting the map onto the frame (``projective``), or in a
+voxel hash of the map (``voxel``); only the brute search launches a KNN
+kernel.
 
 The brute 3D losses thread warm starts through a keyframe's steps as the JAX
 ``process_pair`` does: step 0 of the frame->map searches is seeded by a
@@ -60,9 +64,16 @@ from e2eslam_tpu_torch.losses.regularizers import (
 )
 from e2eslam_tpu_torch.ops.knn import knn
 from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, morton_codes, sort_map_points
-from e2eslam_tpu_torch.slam.fusion import _project_pixels, frame_pointcloud, index_nn
+from e2eslam_tpu_torch.ops.voxel_knn import build_voxel_index, voxel_knn
+from e2eslam_tpu_torch.slam.fusion import (
+    _project_pixels,
+    frame_pointcloud,
+    index_nn,
+    projective_nn,
+)
+from e2eslam_tpu_torch.slam.odometry import point_to_plane_icp
 from e2eslam_tpu_torch.slam.pointclouds import MapState, empty_map
-from e2eslam_tpu_torch.slam.rgbd import build_frame
+from e2eslam_tpu_torch.slam.rgbd import build_frame, normal_map
 from e2eslam_tpu_torch.slam.slam import PointFusion
 
 Tensor = torch.Tensor
@@ -84,6 +95,9 @@ class PairBatch(NamedTuple):
     poses: Tensor  # [F, 4, 4]
 
 
+KNN_IMPLS = ("brute", "index", "projective", "voxel")
+
+
 def validate_config(config) -> None:
     """Refuse settings whose code paths the port does not carry yet
     (ROADMAP.md, queue A), and the JAX package's inconsistent pair
@@ -95,12 +109,10 @@ def validate_config(config) -> None:
             "LOSS.knn_impl: index requires MODEL.fusion_impl: index (the fusion step "
             "maintains the index image the association reads)")
     bad = []
-    if impl not in ("brute", "index"):
-        bad.append(f"LOSS.knn_impl={impl!r} (only brute and index)")
+    if impl not in KNN_IMPLS:
+        bad.append(f"LOSS.knn_impl={impl!r} (one of {KNN_IMPLS})")
     if str(M.get("fusion_impl", "scatter")) not in ("scatter", "index"):
         bad.append(f"MODEL.fusion_impl={M.get('fusion_impl')!r} (only scatter and index)")
-    if M.get("active_window"):
-        bad.append("MODEL.active_window")
     for k in ("compact_period", "compact_voxel"):
         if M.get(k):
             bad.append(f"MODEL.{k} (compaction)")
@@ -108,8 +120,6 @@ def validate_config(config) -> None:
         bad.append("OPTIMIZATION.refinement (only PFT)")
     if str(config.SETTINGS.get("compute_dtype", "float32")) not in ("float32", "bfloat16"):
         bad.append("SETTINGS.compute_dtype (float32 or bfloat16)")
-    if not config.DATA.get("use_gt_pose", True):
-        bad.append("DATA.use_gt_pose: false (estimated-pose view synthesis)")
     if bad:
         raise NotImplementedError(
             "not ported to e2eslam_tpu_torch yet: " + ", ".join(bad))
@@ -175,9 +185,12 @@ class RefinementEngine:
         trainable = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer, self.scheduler = make_optimizer(config, trainable)
         M = config.MODEL
+        aw = M.get("active_window")
+        self.active_window = int(aw) if aw else None
         self.slam = PointFusion(
             odom=str(M.odom), dist_th=float(M.dist_th), angle_th=float(M.angle_th),
-            sigma=float(M.sigma), fusion_impl=str(M.get("fusion_impl", "scatter")),
+            sigma=float(M.sigma), numiters=int(M.numiters), active_window=self.active_window,
+            fusion_impl=str(M.get("fusion_impl", "scatter")),
             index_levels=int(M.get("index_levels", 1) or 1),
             index_level2_period=int(M.get("index_level2_period", 1) or 1),
             index_search_radius=int(M.get("index_search_radius", 0) or 0))
@@ -185,11 +198,11 @@ class RefinementEngine:
         self.refinement_steps = int(config.OPTIMIZATION.refinement_steps)
         self.point_losses = bool(L.three3d_loss or L.get("knn_points")
                                  or L.get("chamfer_distance"))
-        self.index_assoc = str(L.get("knn_impl", "brute")) == "index"
-        # Warm starts thread the brute KNN's indices; the index association
-        # has none to thread.
-        self.warm = (self.refinement_steps > 1 and self.point_losses and not self.index_assoc
-                     and bool(L.get("knn_warm_start", True)))
+        self.knn_impl = str(L.get("knn_impl", "brute"))
+        # Warm starts thread the brute KNN's indices (refine.py:1167-1174);
+        # the other associations have none to thread.
+        self.warm = (self.refinement_steps > 1 and self.point_losses
+                     and self.knn_impl == "brute" and bool(L.get("knn_warm_start", True)))
         seed = config.SETTINGS.get("seed")
         self.generator = torch.Generator(device=device).manual_seed(
             1 if seed is None else int(seed))
@@ -238,9 +251,33 @@ class RefinementEngine:
             depth = depth + float(abl.get("scaling_bias", 0.0))
         return depth
 
+    def _source_transform(self, pair: PairBatch, depth: Tensor, src: int) -> Tensor:
+        """The target-camera -> source-camera transform
+        (``e2eslam_tpu/engine/refine.py:286-314``): from the dataset's
+        poses, or with ``DATA.use_gt_pose: false`` estimated by ICP between
+        the predicted depths (gradICP with ``MODEL.odom: gradicp``,
+        Gauss-Newton otherwise; the reference feeds SLAM-estimated poses
+        back into view synthesis, ``train_depth.py:373-385``). The ICP runs
+        inside the step, so the loss's gradient flows through every
+        iteration into both depths."""
+        if self.config.DATA.get("use_gt_pose", True):
+            return se3_inverse(pair.poses[src]) @ pair.poses[TARGET]
+        K = pair.intrinsics
+        inv_K = inverse_intrinsics(K)[None]
+        tgt_cam = backproject(depth[TARGET][None], inv_K)[0]
+        src_cam = backproject(depth[src][None], inv_K)[0]
+        s = int(self.slam.icp_downsample)
+        tgt = tgt_cam[::s, ::s]
+        return point_to_plane_icp(
+            tgt.reshape(-1, 3), depth.new_ones(tgt.shape[0] * tgt.shape[1]), src_cam,
+            normal_map(src_cam, edge="zero"), depth.new_ones(src_cam.shape[:2]), K,
+            numiters=int(self.slam.numiters), dist_th=float(self.slam.icp_dist_th),
+            soft=self.config.MODEL.odom == "gradicp")
+
     def view_synthesis(self, pair: PairBatch, depth: Tensor) -> Dict:
-        """Warp each source frame into the target view (gt poses); with
-        ``LOSS.geometric`` also the warped and the resampled source depth."""
+        """Warp each source frame into the target view (``_source_transform``'s
+        poses); with ``LOSS.geometric`` also the warped and the resampled
+        source depth."""
         cfg = self.config
         K = pair.intrinsics
         if cfg.MODEL.depth_network == "monodepth2" and cfg.DATA.get("normalize_intrinsics", False):
@@ -252,7 +289,7 @@ class RefinementEngine:
         for src in range(pair.colors.shape[0]):
             if src == TARGET:
                 continue
-            T = (se3_inverse(pair.poses[src]) @ pair.poses[TARGET])[None]
+            T = self._source_transform(pair, depth, src)[None]
             if cfg.LOSS.geometric:
                 grid, warped, valid = project(cam_points, K, T, return_depth=True)
                 outputs[("warped_depth", src)] = warped
@@ -351,9 +388,10 @@ class RefinementEngine:
     def _point_losses(self, pair, depth, map_state, map_index, knn_init, thread_knn):
         """The end-to-end 3D point losses (refine.py:479-859): three3d (or
         ``knn_points``) frame->map, and the bidirectional chamfer, by the
-        exact brute-force KNN or, with ``knn_impl: index``, through the
-        index image (``_index_terms``). Returns ({name: (value, weight)},
-        cache)."""
+        exact brute-force KNN; with ``knn_impl: index`` or ``projective``
+        both by projection (``_projective_terms``); with ``voxel`` three3d
+        through the voxel hash and the chamfer by the brute KNN. Returns
+        ({name: (value, weight)}, cache)."""
         L = self.config.LOSS
         frame = build_frame(pair.colors[TARGET], depth[TARGET], pair.intrinsics,
                             pair.poses[TARGET])
@@ -405,16 +443,25 @@ class RefinementEngine:
         # keyframe; the KNN then returns index 0 (finite) and the gate
         # zeroes the loss.
         gate = 1.0 if count > 0 else 0.0
-        if self.index_assoc:
-            return self._index_terms(frame, live, pts, msk, tex, debias, T_rel, map_state,
-                                     map_pts[:map_count], gate, stride), cache
+        if self.knn_impl in ("index", "projective"):
+            return self._projective_terms(frame, live, pts, msk, tex, debias, T_rel, map_state,
+                                          map_pts[:map_count], gate, stride), cache
         idx_ab = None
         if L.three3d_loss or L.get("knn_points"):
-            _, idx_ab = knn_points_loss(map_pts, pts, n_gt=map_count,
-                                        init_idx=seed_ab("three3d"), q_perm=qperm())
-            cache["three3d"] = idx_ab
-            knn_l = gate * masked_point_loss(pts, map_pts[idx_ab], msk, scale=tex,
-                                             debias=debias)
+            if self.knn_impl == "voxel" and map_index is not None:
+                # refine.py:689-700: the voxel hash's approximate neighbours;
+                # queries with no candidate in range drop out.
+                _, idx, found = voxel_knn(q_sg, map_index,
+                                          max_per_voxel=int(L.get("voxel_max_per", 16)))
+                nn = map_state.points.detach().index_select(0, idx)
+                knn_l = gate * masked_point_loss(pts, nn, msk * found.to(msk.dtype), scale=tex,
+                                                 debias=debias)
+            else:
+                _, idx_ab = knn_points_loss(map_pts, pts, n_gt=map_count,
+                                            init_idx=seed_ab("three3d"), q_perm=qperm())
+                cache["three3d"] = idx_ab
+                knn_l = gate * masked_point_loss(pts, map_pts[idx_ab], msk, scale=tex,
+                                                 debias=debias)
             w = L.three3d_loss_weight if L.three3d_loss else L.knn_points_weight
             terms["three3d"] = (knn_l, float(w))
         if L.get("chamfer_distance"):
@@ -447,20 +494,26 @@ class RefinementEngine:
             terms["chamfer"] = (gate * (d_ab + d_ba), 0.5 * float(L.chamfer_weight))
         return terms, cache
 
-    def _index_terms(self, frame, live, pts, msk, tex, debias, T_rel, map_state: MapState,
-                     map_pts: Tensor, gate: float, stride: int) -> Dict:
-        """The 3D losses' index branch (refine.py:622-658, :726-783): each
-        query pixel's neighbour is the map slot ``index_nn`` reads for it
-        (``LOSS.index_assoc_levels`` levels), recomputed every step from the
-        step's own depth. three3d optionally drops matches farther than
-        ``three3d_dist_gate`` and weights each by its map point's confidence
-        (``three3d_conf_weight``: min(conf, 4) / 4). The chamfer's a->b
-        reuses that association; its b->a pairs each valid map row of
-        ``map_pts`` with the predicted point at the pixel it projects to in
-        the target camera: gathers only, no KNN."""
+    def _projective_terms(self, frame, live, pts, msk, tex, debias, T_rel,
+                          map_state: MapState, map_pts: Tensor, gate: float, stride: int) -> Dict:
+        """The 3D losses' projective branches (refine.py:622-688, :726-783):
+        each query pixel's neighbour is the map slot ``index_nn`` reads for
+        it (``knn_impl: index``; ``LOSS.index_assoc_levels`` levels) or the
+        nearest map point projecting onto it (``projective``, within
+        ``MODEL.active_window``'s newest rows), recomputed every step from
+        the step's own depth. The index three3d optionally drops matches
+        farther than ``three3d_dist_gate`` and weights each by its map
+        point's confidence (``three3d_conf_weight``: min(conf, 4) / 4). The
+        chamfer's a->b reuses that association; its b->a pairs each valid
+        map row of ``map_pts`` with the predicted point at the pixel it
+        projects to in the target camera: gathers only, no KNN."""
         L = self.config.LOSS
-        levels = L.get("index_assoc_levels")
-        nn_idx, found = index_nn(map_state, frame, levels=int(levels) if levels else None)
+        index = self.knn_impl == "index"
+        if index:
+            levels = L.get("index_assoc_levels")
+            nn_idx, found = index_nn(map_state, frame, levels=int(levels) if levels else None)
+        else:
+            nn_idx, found = projective_nn(map_state, frame, active_window=self.active_window)
         rows = map_state.data.index_select(0, nn_idx[::stride]).detach()
         nn = rows[:, 0:3]
         w_found = msk * found[::stride].to(msk.dtype)
@@ -468,9 +521,9 @@ class RefinementEngine:
         if L.three3d_loss or L.get("knn_points"):
             w3 = w_found
             dist_gate = L.get("three3d_dist_gate")
-            if dist_gate:
+            if index and dist_gate:
                 w3 = w3 * (((pts - nn) ** 2).sum(dim=-1) < float(dist_gate) ** 2).to(w3.dtype)
-            if L.get("three3d_conf_weight", False):
+            if index and L.get("three3d_conf_weight", False):
                 w3 = w3 * rows[:, 9].clamp(max=4.0) * 0.25
             w = L.three3d_loss_weight if L.three3d_loss else L.knn_points_weight
             terms["three3d"] = (gate * masked_point_loss(pts, nn, w3, scale=tex, debias=debias),
@@ -544,7 +597,7 @@ class RefinementEngine:
             map_state = self.slam._update_map(map_state, prev)
         live = build_frame(pair.colors[TARGET], depth[TARGET], pair.intrinsics,
                            pair.poses[TARGET])
-        map_state, est_pose = self.slam.step(map_state, live, prev)
+        map_state, est_pose, _ = self.slam.step(map_state, live, prev)
         return map_state, est_pose
 
     def make_empty_map(self) -> MapState:
@@ -553,18 +606,24 @@ class RefinementEngine:
         association; refine.py:1028-1046)."""
         cfg = self.config
         needs_index = (str(cfg.MODEL.get("fusion_impl", "scatter")) == "index"
-                       or self.index_assoc)
+                       or self.knn_impl == "index")
         H, W = int(cfg.DATA.height), int(cfg.DATA.width)
         return empty_map(self.map_capacity, device=self.device,
                          index_hw=H * W if needs_index else None,
                          index_levels=int(cfg.MODEL.get("index_levels", 1) or 1))
 
     def build_map_index(self, map_state: MapState, bucket: Optional[int] = None):
-        """A Morton-sorted view of the map's first ``bucket`` rows (all
-        valid rows live there) for the brute KNN, or None when the sort is
-        off, no 3D loss runs or the association reads the index image."""
-        if not (self.point_losses and not self.index_assoc
-                and bool(self.config.LOSS.get("knn_spatial_sort", True))):
+        """The 3D loss's index over the map (refine.py:1048-1080): the voxel
+        hash for ``knn_impl: voxel``; for the brute KNN with a 3D loss on,
+        a Morton-sorted view of the map's first ``bucket`` rows (all valid
+        rows live there) unless the sort is off; else None."""
+        L = self.config.LOSS
+        if self.knn_impl == "voxel":
+            return build_voxel_index(map_state.points.detach(), map_state.count,
+                                     float(L.get("voxel_size", 0.1)),
+                                     table_size=1 << int(L.get("voxel_table_pow", 20)))
+        if not (self.point_losses and self.knn_impl == "brute"
+                and bool(L.get("knn_spatial_sort", True))):
             return None
         pts = map_state.points.detach()
         if bucket is not None:

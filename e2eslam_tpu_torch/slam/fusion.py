@@ -15,6 +15,10 @@ gradslam's PointFusion step (the reference's ``models["SLAM"].step``,
      whose confidence is a Gaussian of the normalised pixel radius;
   5. live pixels no winner claimed are appended at the ``count`` cursor.
 
+With an active window only the newest map rows take part in steps 1-4.
+``projective_nn``, the projective 3D loss's association, runs steps 1-3
+with no gates.
+
 The index fusion (``pointfusion_step_index``, ``MODEL.fusion_impl:
 index``) finds each live pixel's candidate by projecting it into the last
 fused keyframe's camera and reading that keyframe's cached index image:
@@ -100,13 +104,16 @@ def _cos_deg(angle_deg: float) -> float:
 
 
 def _associate(state: MapState, frame: RGBDFrame, live: FramePoints, *,
-               dist_th: float, angle_th: float):
-    """Project map points into the frame and rank them per pixel.
+               dist_th: float, angle_th: Optional[float]):
+    """Project map points into the frame and rank them per pixel
+    (``e2eslam_tpu/slam/fusion.py:73-118``).
 
-    Returns (pix [N], winner [N], v_live [N, 3], n_live [N, 3]): each map
-    point's target pixel, the winner mask (one winner per pixel: the
-    closest similar point, then the lowest index), and the live vertex and
-    normal at each point's pixel.
+    Returns (pix [N], best_idx [HW], winner [N], v_live [N, 3], n_live):
+    each map point's target pixel, each pixel's winning map row (``N``
+    where none), the winner mask (one winner per pixel: the closest similar
+    point, then the lowest index), and the live vertex and normal at each
+    point's pixel. ``angle_th`` None skips the normal test (``n_live`` is
+    then None).
     """
     H, W = frame.depth.shape[:2]
     HW = H * W
@@ -117,11 +124,12 @@ def _associate(state: MapState, frame: RGBDFrame, live: FramePoints, *,
     in_frame = in_frame & (rows < state.count)
 
     v_live = live.points[pix]
-    n_live = live.normals[pix]
     dist = torch.linalg.norm(state.points - v_live, dim=-1)
-    ndot = (state.normals * n_live).sum(dim=-1)
-    similar = (in_frame & (live.mask[pix] > 0) & (dist < dist_th)
-               & (ndot > _cos_deg(angle_th)))
+    similar = in_frame & (live.mask[pix] > 0) & (dist < dist_th)
+    n_live = None
+    if angle_th is not None:
+        n_live = live.normals[pix]
+        similar = similar & ((state.normals * n_live).sum(dim=-1) > _cos_deg(angle_th))
 
     dist_m = torch.where(similar, dist, float("inf"))
     best_dist = torch.full((HW,), float("inf"), device=dev).scatter_reduce(
@@ -131,43 +139,80 @@ def _associate(state: MapState, frame: RGBDFrame, live: FramePoints, *,
     best_idx = torch.full((HW,), N, dtype=torch.int64, device=dev).scatter_reduce(
         0, pix, idx_m, "amin", include_self=True)
     winner = is_best & (rows == best_idx[pix])
-    return pix, winner, v_live, n_live
+    return pix, best_idx, winner, v_live, n_live
+
+
+def _window_view(state: MapState, window: int):
+    """The newest ``window`` rows of the map as a map of their own
+    (``e2eslam_tpu/slam/fusion.py:121-138``): association and fusion then
+    cost O(window) whatever the map's size. ``count`` is a host integer, so
+    the window is a plain slice. Returns (start, sub-map)."""
+    N = state.data.shape[0]
+    start = min(max(state.count - window, 0), max(N - window, 0))
+    return start, MapState(data=state.data[start:start + window],
+                           count=min(state.count - start, window))
+
+
+@torch.no_grad()
+def projective_nn(state: MapState, frame: RGBDFrame, *, active_window: Optional[int] = None):
+    """Each pixel's nearest map point among those that project onto it, with
+    no distance or normal gate (``e2eslam_tpu/slam/fusion.py:140-163``):
+    one projection of the map and a scatter-min, no KNN. ``active_window``
+    limits the candidates to the newest W rows; the indices stay global.
+
+    Returns (nn_idx [HW] int64 clipped to the candidates, found [HW] bool)."""
+    start = 0
+    if active_window is not None and active_window < state.data.shape[0]:
+        start, state = _window_view(state, int(active_window))
+    _, best_idx, _, _, _ = _associate(state, frame, frame_pointcloud(frame),
+                                      dist_th=float("inf"), angle_th=None)
+    N = state.data.shape[0]
+    return start + best_idx.clamp(max=N - 1), best_idx < N
 
 
 @torch.no_grad()
 def pointfusion_step(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05,
-                     angle_th: float = 20.0, sigma: float = 0.6) -> MapState:
+                     angle_th: Optional[float] = 20.0, sigma: float = 0.6,
+                     active_window: Optional[int] = None) -> MapState:
     """Fuse one live frame into the map, in place. Returns the new state
-    (the same buffer, with the new count)."""
+    (the same buffer, with the new count).
+
+    ``active_window`` W (``e2eslam_tpu/slam/fusion.py:415-440``): only the
+    newest W rows are association and fusion candidates; their fused rows
+    are written back first, then the appends land in the full buffer."""
     H, W = frame.depth.shape[:2]
     HW = H * W
     N = state.data.shape[0]
+    windowed = active_window is not None and active_window < N
+    start, sub = _window_view(state, int(active_window)) if windowed else (0, state)
     live = frame_pointcloud(frame)
     alpha = _pixel_alpha(H, W, frame.intrinsics, sigma) * live.mask
 
-    pix, winner, v_live, n_live = _associate(
-        state, frame, live, dist_th=dist_th, angle_th=angle_th)
+    pix, _, winner, v_live, n_live = _associate(
+        sub, frame, live, dist_th=dist_th, angle_th=angle_th)
+    if n_live is None:  # no angle test: the normals are gathered here
+        n_live = live.normals[pix]
 
     # ---- confidence-weighted fusion of the winners ----------------------
     a = alpha[pix]
-    c = state.confidence
+    c = sub.confidence
     wsum = (c + a).clamp(min=1e-12)
-    wf = winner[:, None].to(state.data.dtype)
+    wf = winner[:, None].to(sub.data.dtype)
 
     def fuse(old, new):
         fused = (c[:, None] * old + a[:, None] * new) / wsum[:, None]
         return old + wf * (fused - old)
 
-    points_w = fuse(state.points, v_live)
-    colors_w = fuse(state.colors, live.colors[pix])
-    normals_raw = fuse(state.normals, n_live)
+    points_w = fuse(sub.points, v_live)
+    colors_w = fuse(sub.colors, live.colors[pix])
+    normals_raw = fuse(sub.normals, n_live)
     n2 = (normals_raw * normals_raw).sum(dim=-1, keepdim=True)
     ok_n = n2 > 1e-24
     normals_w = torch.where(
         ok_n, normals_raw / torch.where(ok_n, n2, torch.ones_like(n2)).sqrt(),
         normals_raw)
     confidence_w = c + winner.to(c.dtype) * a
-    state.data.copy_(pack_rows(points_w, normals_w, colors_w, confidence_w))
+    sub.data.copy_(pack_rows(points_w, normals_w, colors_w, confidence_w))
 
     # ---- append the live pixels no winner claimed -----------------------
     claimed = torch.zeros(HW, dtype=torch.int64, device=pix.device).scatter_reduce(

@@ -34,18 +34,27 @@ def vertex_map(depth: Tensor, intrinsics: Tensor) -> Tensor:
     return backproject(depth[None], inverse_intrinsics(intrinsics)[None])[0]
 
 
-def normal_map(vertices: Tensor) -> Tensor:
-    """Per-pixel normals ``normalize((v[y, x+1] - v) x (v[y+1, x] - v))``.
+def normal_map(vertices: Tensor, edge: str = "zero") -> Tensor:
+    """Per-pixel normals ``normalize((v[y, x+1] - v) x (v[y+1, x] - v))``
+    (``e2eslam_tpu/slam/rgbd.py:45-93``).
 
-    The last row/column has no forward difference and gets a zero one,
-    hence a zero normal, so border pixels never pass the fusion angle gate:
-    the JAX package's ``edge="zero"``, its deliberate choice over
-    gradslam's replicated edge.
+    ``edge`` sets the last row and column, which have no forward difference:
+    ``"zero"`` (the default) gives them a zero difference, hence a zero
+    normal, so border pixels never pass the fusion angle gate and drop out
+    of ICP's point-to-plane residuals: the JAX package's deliberate choice
+    over gradslam's edge. ``"replicate"`` repeats the previous difference,
+    as gradslam does.
     """
+    if edge not in ("zero", "replicate"):
+        raise ValueError(f"normal_map edge must be 'zero' or 'replicate', got {edge!r}")
     dx = vertices[:, 1:] - vertices[:, :-1]
     dy = vertices[1:] - vertices[:-1]
-    dx = torch.cat([dx, torch.zeros_like(dx[:, -1:])], dim=1)
-    dy = torch.cat([dy, torch.zeros_like(dy[-1:])], dim=0)
+    if edge == "replicate":
+        dx = torch.cat([dx, dx[:, -1:]], dim=1)
+        dy = torch.cat([dy, dy[-1:]], dim=0)
+    else:
+        dx = torch.cat([dx, torch.zeros_like(dx[:, -1:])], dim=1)
+        dy = torch.cat([dy, torch.zeros_like(dy[-1:])], dim=0)
     n = torch.linalg.cross(dx, dy, dim=-1)
     n2 = (n * n).sum(dim=-1, keepdim=True)
     ok = n2 > 1e-24

@@ -427,3 +427,80 @@ def test_index_fusion_on_the_card_matches_the_cpu(card):
     assert torch.equal(a.index_image.cpu(), c.index_image)
     assert bool((a.index_image < 64).sum() > 3000)  # most pixels merged
     torch.testing.assert_close(a.data.cpu()[: a.count], c.data[: c.count], rtol=0, atol=1e-6)
+
+
+def _icp_inputs(device, n_live=4096):
+    """A plane 1 m in front of the camera seen twice, the live view 2 cm
+    farther: the camera-frame inputs of one ICP solve."""
+    from e2eslam_tpu_torch.core.camera import inverse_intrinsics
+    from e2eslam_tpu_torch.core.projection import backproject
+    from e2eslam_tpu_torch.slam.rgbd import normal_map
+
+    K_ = torch.tensor([[60.0, 0, 32, 0], [0, 60, 32, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    yy, xx = torch.meshgrid(torch.arange(64.0), torch.arange(64.0), indexing="ij")
+    depth = (1.0 + 0.002 * xx + 0.001 * yy)[..., None]
+    tgt = backproject(depth[None], inverse_intrinsics(K_)[None])[0]
+    src = backproject((depth + 0.02)[None], inverse_intrinsics(K_)[None])[0].reshape(-1, 3)
+    args = (src[:n_live], torch.ones(n_live), tgt, normal_map(tgt), torch.ones(64, 64), K_)
+    return tuple(a.to(device) for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("soft", [True, False], ids=["gradicp", "icp"])
+def test_icp_holds_the_pose_on_a_failed_factorisation(card, soft):
+    """A negative damping makes every 6x6 system indefinite: the Cholesky
+    factorisation fails (``cholesky_ex`` leaves a finite partial factor) and
+    every iteration holds the initial transform; with a valid damping the
+    same solve moves it. The loop reads nothing back to the host: no sync
+    PyTorch makes (``set_sync_debug_mode``), and none inside the solver
+    library either: queued behind a spin kernel of about a second, a
+    two-iteration solve is enqueued long before the card reaches it. (Two:
+    20 iterations are ~4,000 launches, past the depth of the card's launch
+    queue, so the host would wait for room in it, not for a result.)"""
+    import time
+
+    from e2eslam_tpu_torch.slam.odometry import point_to_plane_icp
+
+    args = _icp_inputs(card)
+    init = torch.eye(4, device=card)
+    point_to_plane_icp(*args, numiters=2, soft=soft)  # warm-up (loads the solver)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        held = point_to_plane_icp(*args, numiters=5, soft=soft, damping=-1e6, init_T=init)
+        moved = point_to_plane_icp(*args, numiters=5, soft=soft, init_T=init)
+        torch.cuda._sleep(2_000_000_000)  # ~1 s of spinning at the H100's clock
+        t0 = time.perf_counter()
+        point_to_plane_icp(*args, numiters=2, soft=soft)
+        enqueue_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        waited_s = time.perf_counter() - t1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(held.cpu(), init.cpu())
+    assert float((moved - init).abs().max()) > 1e-3 and bool(torch.isfinite(moved).all())
+    assert waited_s > 0.2 and enqueue_s < waited_s, (enqueue_s, waited_s)
+
+
+@pytest.mark.cuda
+def test_voxel_index_on_the_card_equals_the_cpu(card):
+    """The voxel hash built on the card equals the CPU-built one bit for
+    bit, and so do the searches through it."""
+    from e2eslam_tpu_torch.ops.voxel_knn import build_voxel_index, voxel_knn
+
+    rng = np.random.default_rng(29)
+    p = rng.uniform(-50, 50, (200_000, 3)).astype(np.float32)
+    p[:100_000] = p[100_000:] + rng.normal(scale=0.05, size=(100_000, 3)).astype(np.float32)
+    q = (p[rng.integers(0, 200_000, 50_000)]
+         + rng.normal(scale=0.05, size=(50_000, 3))).astype(np.float32)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        idx = build_voxel_index(torch.from_numpy(p).to(dev), 190_000, 0.1, table_size=1 << 18)
+        out.append((idx, voxel_knn(torch.from_numpy(q).to(dev), idx)))
+    (a, ra), (b, rb) = out
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu(), y)
+    for x, y in zip(ra, rb):
+        assert torch.equal(x.cpu(), y)
+    assert bool(rb[2].float().mean() > 0.5)

@@ -167,16 +167,11 @@ def test_online_adaptation_matches_jax(sequence_length):
 def test_unported_settings_are_refused():
     from e2eslam_tpu_torch.engine.refine import validate_config
 
-    refused = {"LOSS.knn_impl": "voxel", "MODEL.active_window": 4096,
-               "MODEL.compact_period": 4, "MODEL.compact_voxel": 0.01,
-               "OPTIMIZATION.refinement": "OFT", "DATA.use_gt_pose": False}
+    refused = {"LOSS.knn_impl": "octree", "MODEL.compact_period": 4,
+               "MODEL.compact_voxel": 0.01, "OPTIMIZATION.refinement": "OFT"}
     for key, value in refused.items():
         with pytest.raises(NotImplementedError):
             validate_config(_cfg(load_yaml, default_config_path(), **{key: value}))
-    for impl in ("projective", "voxel"):
-        with pytest.raises(NotImplementedError):
-            validate_config(_cfg(load_yaml, default_config_path(), **{
-                "LOSS.knn_impl": impl, "MODEL.fusion_impl": "index"}))
     with pytest.raises(NotImplementedError):
         validate_config(_cfg(load_yaml, default_config_path(), **{
             "OPTIMIZATION.refinement": "SCALE"}))
@@ -193,8 +188,13 @@ def test_unported_settings_are_refused():
               "LOSS.three3d_map_stride": 2, "LOSS.knn_sort_period": 4,
               "MODEL.depth_network": "monodepth2", "ABLATION.dual_disparity": True,
               "ABLATION.scale_intrinsics": True, "ABLATION.scaled_depth_mode": "constant",
-              "DEMO.sequence_length_refinement": 3}
+              "DEMO.sequence_length_refinement": 3, "MODEL.odom": "gradicp",
+              "DATA.use_gt_pose": False, "MODEL.active_window": 4096}
     validate_config(_cfg(load_yaml, default_config_path(), **ported))
+    for impl in ("projective", "voxel"):
+        for fusion in ("scatter", "index"):
+            validate_config(_cfg(load_yaml, default_config_path(), **{
+                "LOSS.knn_impl": impl, "MODEL.fusion_impl": fusion}))
 
 
 @pytest.mark.parametrize("quantum", [8192])
