@@ -72,15 +72,36 @@ Phases (any failure ends the script with a non-zero exit):
               launch; the voxel found share reported) and with
               MODEL.active_window 200,000 (its KNN calls held against their
               plain versions);
- 10. small    the default path, the chamfer one, index fusion and
-              association (float32), the flagship settings, gradICP and the
-              voxel association at 64x64 on the card, with deterministic
+ 10. icl      the reference's ICL-NUIM configuration
+              (configs/config_icl_online.yaml: 320x256, brute three3d) on the
+              repository's 10-frame sequence decoded from its PNGs (the
+              decoder used is printed), the network loaded from a
+              depth.pth.tar of seeded weights and saved at the end: ATE under
+              1e-5, the candidate and resident kernels launched and every KNN
+              call held against its plain version; the saved checkpoint
+              restored in a fresh runner: an equal state dict and disparity;
+     compact  the flagship with a projective compaction pass every 10th
+              keyframe (tools/bench_flagship_compact.py), 60 frames: 59
+              keyframes, no KNN launch, the map shrinking at each of the 5
+              passes (CUDA-event times printed), the first pass run again on
+              the CPU on a copy of its map (counts within PROJ_COUNT_TOL,
+              index images consistent); then 12 frames of configs/config.yaml
+              with a voxel pass every 4th keyframe and MODEL.compact_voxel at
+              the end: the keyframe after a pass sorts afresh and takes no
+              seeds, every KNN call held, card and CPU passes of equal counts;
+ 11. small    the default path, the chamfer one, index fusion and
+              association (float32), the flagship settings, gradICP, the
+              voxel association, the ICL sequence and the compact workload
+              at 64x64 on the card, with deterministic
               algorithms and with the default ones, and on the CPU (plain
               versions): the same keyframes, abs_rel and map size
               (``SMALL_CONFIGS``: float32 tolerances, and for bf16, gradICP
               and voxel twice the widest gaps of repeated card runs,
               ``python3 chip_smoke.py --small-repeats N [config ...]``, which
               runs only this phase, N times, and reports the gaps).
+``python3 chip_smoke.py --phases icl compact small:icl ...`` runs only the
+named phases (after the build), each with its checks, and prints neither
+the kernels line nor the result.
 The second-to-last line is the kernels' JSON line (the resident kernel has
 a second entry, ``"call": "chamfer b->a"``, for its map->frame calls; each
 entry counts its launches per path), the last line the result.
@@ -808,7 +829,8 @@ def phase_flagship(knn, smi):
     abs_rel over 0.078-0.102, 5 of them past the band's 0.090 (float32 as
     wide; PERF.md §6), so one such run cannot hold the band; the
     deterministic run repeats to the bit. Then fusion's determinism.
-    Returns the launches per kernel over both runs."""
+    Returns the launches per kernel over both runs and each run's map
+    points, mean abs_rel and steps/s."""
     import torch
 
     from e2eslam_tpu_torch.apps.profile_adaptation import flagship_config
@@ -854,12 +876,15 @@ def phase_flagship(knn, smi):
                  f"of {FLAGSHIP_MAP}")
         if any(launches.values()):
             fail(f"flagship ({algos}): the index path launched KNN kernels {launches}")
-        return runner, result, launches
+        summary = {"algorithms": algos, "map_points": result["map_points"],
+                   "mean_abs_rel": result["mean_abs_rel"],
+                   "steps_per_sec": result["steps_per_sec"]}
+        return runner, result, launches, summary
 
-    runner, result, a = run(False)
+    runner, result, a, first = run(False)
     fusion_determinism(runner, result)
-    b = run(True)[2]
-    return {key: a[key] + b[key] for key in a}
+    b, second = run(True)[2:]
+    return {key: a[key] + b[key] for key in a}, [first, second]
 
 
 def fusion_determinism(runner, result):
@@ -1172,6 +1197,263 @@ def phase_assoc(knn, stats):
     return _add(total, launches)
 
 
+def phase_icl(knn, stats, smi):
+    """The reference's ICL-NUIM online configuration
+    (configs/config_icl_online.yaml through ``profile_adaptation.icl_config``:
+    ResNet-18 indoor at 320x256, brute three3d, PNGs decoded from disk) on
+    the repository's 10-frame sequence, its network loaded through
+    ``MODEL.use_pretrained_models`` from a ``depth.pth.tar`` of seeded
+    weights written to a temporary directory, the adapted network saved
+    through ``MODEL.save_checkpoint``. Checks: finite metrics, ATE under
+    1e-5 (gt odometry), the candidate and resident kernels launched and
+    every KNN call held against its plain version; then a fresh runner that
+    restores the checkpoint holds a bit-equal state dict and gives the same
+    disparity under deterministic algorithms. Returns the launches."""
+    import tempfile
+
+    import torch
+
+    from e2eslam_tpu_torch.apps.profile_adaptation import icl_config, seeded_weights_dir
+    from e2eslam_tpu_torch.data import native_loader
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = seeded_weights_dir(icl_config(), os.path.join(tmp, "indoor"))
+        cfg = icl_config(weights)
+        cfg.MODEL.save_checkpoint = os.path.join(tmp, "adapted")
+        runner = OnlineAdaptation(cfg)
+        print(json.dumps({"phase": "icl", "decoder": runner.dataset.decoder,
+                          "native_loader": native_loader.unavailable_reason() or "built",
+                          "frames": len(runner.dataset.rgb_files),
+                          "intrinsics": runner.dataset.intrinsics[:3, :3].tolist()}), flush=True)
+        for k in knn.KERNELS:
+            k.launches = 0
+        with Recorder(knn, keep_all=True) as rec:
+            result = runner.run(verbose=False)
+        launches = launch_counts(knn)
+        terms = ("total_loss", "photometric", "three3d", "abs_rel")
+        line = {"phase": "icl", "keyframes": result["num_keyframes"],
+                "refine_steps": result["refine_steps"], "elapsed_s": result["elapsed_s"],
+                "steps_per_sec": result["steps_per_sec"], "mean_abs_rel": result["mean_abs_rel"],
+                "map_points": result["map_points"], "ate": result["ate"], "rpe": result["rpe"],
+                "launches": launches, "device": torch.cuda.get_device_name(0),
+                "nvidia_smi": smi}
+        print(json.dumps(line), flush=True)
+        bad = [(i, k) for i, m in enumerate(result["metrics"]) for k in terms if not _finite(m[k])]
+        if not result["metrics"] or bad:
+            fail(f"icl: non-finite or missing terms {bad[:5]}")
+        if not result["ate"] < 1e-5:
+            fail(f"icl: ATE {result['ate']} with gt odometry is not under 1e-5")
+        for key in ("cand", "resident"):
+            if launches[key] == 0:
+                fail(f"icl: the run launched no {key} kernel")
+        if rec.warm_dense:
+            fail(f"icl: {rec.warm_dense} warm calls took the dense kernel")
+        hold_calls(knn, rec, stats, {"phase": "icl"})
+
+        restored = icl_config(weights)
+        restored.MODEL.restore_checkpoint = cfg.MODEL.save_checkpoint
+        fresh = OnlineAdaptation(restored)
+        a, b = runner.engine.model.state_dict(), fresh.engine.model.state_dict()
+        same_state = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        x = torch.from_numpy(runner.dataset[0][0][:2] / 255.0).float().to(runner.device)
+        with algorithms(True), torch.no_grad():
+            same_disp = torch.equal(runner.engine.forward_depths(x)[0],
+                                    fresh.engine.forward_depths(x)[0])
+        print(json.dumps({"phase": "icl", "check": "checkpoint restored in a fresh runner",
+                          "state_dict_equal": same_state, "disparity_equal": same_disp}),
+              flush=True)
+        if not (same_state and same_disp):
+            fail("icl: the restored checkpoint differs from the adapted network")
+    return launches
+
+
+# The card's projective pass against the CPU's on a copy of the same map:
+# K.p/z rounds to another pixel now and then, so the counts may part by a
+# few rows (1 and 2 of ~800,000 on an H100, PERF.md §6); held to this share
+# of the CPU's count.
+PROJ_COUNT_TOL = 1e-3
+
+
+class CompactionProbe:
+    """Wraps ``RefinementEngine.compact_now`` and the end-of-run
+    ``compact_map`` of ``engine.adaptation``: each pass is timed with CUDA
+    events (the card's only), and the first live pass and the end-of-run
+    pass are run again on the CPU on a copy of their input map."""
+
+    def __init__(self):
+        self.times_ms, self.checks = [], []
+
+    def __enter__(self):
+        import torch
+
+        from e2eslam_tpu_torch.engine import adaptation
+        from e2eslam_tpu_torch.engine.refine import RefinementEngine
+
+        self._orig = (RefinementEngine.compact_now, adaptation.compact_map)
+        orig_now, orig_map = self._orig
+        probe = self
+
+        def timed_call(fn, *a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            probe.times_ms.append(start.elapsed_time(end))
+            return out
+
+        def now(engine, m, pose, K, bucket=None):
+            first = not probe.checks
+            cpu_in = _map_to("cpu", m) if first else None
+            out = timed_call(orig_now, engine, m, pose, K, bucket=bucket)
+            if first:
+                ref = orig_now(engine, cpu_in, pose.cpu(), K.cpu(), bucket=bucket)
+                probe.record("live", cpu_in.count, out, ref)
+            return out
+
+        def end_of_run(m, **kw):
+            cpu_in = _map_to("cpu", m)
+            out = timed_call(orig_map, m, **kw)
+            probe.record("end", cpu_in.count, out, orig_map(cpu_in, **kw))
+            return out
+
+        RefinementEngine.compact_now = now
+        adaptation.compact_map = end_of_run
+        return self
+
+    def record(self, kind, before, card, cpu):
+        """One pass's card and CPU results, read now (later fusions replace
+        the index images): counts, and whether each index image is
+        consistent with its count."""
+        self.checks.append({"pass": kind, "before": before, "card": card.count,
+                            "cpu": cpu.count, "card_index_ok": _index_consistent(card),
+                            "cpu_index_ok": _index_consistent(cpu)})
+
+    def __exit__(self, *exc):
+        from e2eslam_tpu_torch.engine import adaptation
+        from e2eslam_tpu_torch.engine.refine import RefinementEngine
+
+        RefinementEngine.compact_now, adaptation.compact_map = self._orig
+
+
+def _map_to(device, m):
+    import dataclasses
+
+    def move(t):
+        return None if t is None else t.to(device, copy=True)
+
+    return dataclasses.replace(m, data=move(m.data), index_image=move(m.index_image),
+                               index_pose=move(m.index_pose), index_image2=move(m.index_image2),
+                               index_pose2=move(m.index_pose2))
+
+
+def _index_consistent(m) -> bool:
+    """Every cached slot of both index levels is -1 or a valid row."""
+    for img in (m.index_image, m.index_image2):
+        if img is not None and not bool(((img >= -1) & (img < m.count)).all()):
+            return False
+    return True
+
+
+def phase_compact(knn, stats, smi, flagship):
+    """Live-map compaction, two runs. (a) The ``compact`` workload
+    (tools/bench_flagship_compact.py: the flagship with a projective pass
+    after every 10th keyframe), all 60 frames at 320x256: 59 keyframes, no
+    KNN launch, the count falling at each of the 5 passes; the first pass
+    run again on the CPU on a copy of its map: counts within
+    ``PROJ_COUNT_TOL``, both results' index images consistent (every slot
+    -1 or below the count). Its map points and mean abs_rel are printed
+    beside the flagship run's of the same call (``flagship``), with each
+    pass's CUDA-event time. (b) configs/config.yaml, 12 frames, a voxel pass
+    every 4th keyframe, a sort period of 3 (so regathers and cross-keyframe
+    seeds run) and ``MODEL.compact_voxel: 0.01`` at the end: the keyframe
+    after each pass sorts afresh and takes no seeds, every KNN call is held
+    against its plain version, the compacted map is smaller, and the voxel
+    passes give equal counts on the card and the CPU. Returns the launches
+    per kernel over both runs."""
+    import torch
+
+    from e2eslam_tpu_torch.apps.profile_adaptation import compact_config
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    runner = OnlineAdaptation(compact_config(load_yaml(default_config_path())))
+    for k in knn.KERNELS:
+        k.launches = 0
+    with CompactionProbe() as probe:
+        result = runner.run(verbose=False)
+    launches = launch_counts(knn)
+    first = probe.checks[0]
+    gap = abs(first["card"] - first["cpu"])
+    line = {"phase": "compact", "run": "flagship, projective every 10th keyframe",
+            "keyframes": result["num_keyframes"], "steps_per_sec": result["steps_per_sec"],
+            "elapsed_s": result["elapsed_s"], "map_points": result["map_points"],
+            "mean_abs_rel": result["mean_abs_rel"], "compactions": result["compactions"],
+            "pass_ms": probe.times_ms, "launches": launches,
+            "flagship_same_call": flagship,
+            "first_pass_card_vs_cpu": {**first, "gap": gap, "tol": PROJ_COUNT_TOL},
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print(json.dumps(line), flush=True)
+    if result["num_keyframes"] != FLAGSHIP_KEYFRAMES:
+        fail(f"compact: {result['num_keyframes']} keyframes, not {FLAGSHIP_KEYFRAMES}")
+    if any(launches.values()):
+        fail(f"compact: the index path launched KNN kernels {launches}")
+    events = result["compactions"]
+    if len(events) != FLAGSHIP_KEYFRAMES // 10 or not all(e["after"] < e["before"] for e in events):
+        fail(f"compact: the passes did not each shrink the map: {events}")
+    if not all(map(_finite, [m["total_loss"] for m in result["metrics"]])):
+        fail("compact: non-finite losses")
+    if gap > PROJ_COUNT_TOL * first["cpu"]:
+        fail(f"compact: the card's projective pass kept {first['card']} rows, the CPU's "
+             f"{first['cpu']}")
+    if not (first["card_index_ok"] and first["cpu_index_ok"]
+            and _index_consistent(result["map"])):
+        fail("compact: an index image points past the compacted map")
+    a = launches
+
+    cfg = load_yaml(default_config_path())
+    cfg.DEMO.sequence_length = 12
+    cfg.MODEL.compact_period = 4
+    cfg.MODEL.compact_mode = "voxel"
+    cfg.MODEL.compact_voxel = 0.01
+    cfg.LOSS.knn_sort_period = 3
+    runner = OnlineAdaptation(cfg)
+    for k in knn.KERNELS:
+        k.launches = 0
+    with CompactionProbe() as probe, Recorder(knn, keep_all=True) as rec:
+        result = runner.run(verbose=False)
+    b = launch_counts(knn)
+    print(json.dumps({"phase": "compact", "run": "config.yaml, voxel every 4th keyframe",
+                      "keyframes": result["num_keyframes"],
+                      "steps_per_sec": result["steps_per_sec"],
+                      "map_points": result["map_points"],
+                      "map_points_compacted": result.get("map_points_compacted"),
+                      "compactions": result["compactions"], "sorted_at": result["sorted_at"],
+                      "seeded_at": result["seeded_at"], "pass_ms": probe.times_ms,
+                      "card_vs_cpu": probe.checks, "launches": b}), flush=True)
+    for e in result["compactions"]:
+        nxt = e["keyframe"] + 1
+        if nxt < result["num_keyframes"] and (nxt not in result["sorted_at"]
+                                              or nxt in result["seeded_at"]):
+            fail(f"compact: keyframe {nxt}, after a pass, reused the sort or the seeds")
+    if not result["seeded_at"] or not result["compactions"]:
+        fail("compact: no seeded keyframe or no pass ran")
+    if not result.get("map_points_compacted", result["map_points"]) < result["map_points"]:
+        fail("compact: the end-of-run pass did not shrink the map")
+    if len(probe.checks) != 2 or any(c["card"] != c["cpu"] or not c["card_index_ok"]
+                                     for c in probe.checks):
+        fail(f"compact: the voxel passes on the card and the CPU differ: {probe.checks}")
+    for key in ("cand", "resident"):
+        if b[key] == 0:
+            fail(f"compact: the brute run launched no {key} kernel")
+    if rec.warm_dense:
+        fail(f"compact: {rec.warm_dense} warm calls took the dense kernel")
+    hold_calls(knn, rec, stats, {"phase": "compact"})
+    return _add(a, b)
+
+
 def _finite(x) -> bool:
     return x == x and abs(x) != float("inf")
 
@@ -1224,6 +1506,35 @@ def _small_gradicp(cfg):
 # tolerance of 0 leaves the check's floor of 4 points.
 GRADICP_TOL = {"first": 1.6e-6, "later": 2.2e-5, "mean": 0.0061, "map": 0.0076}
 VOXEL_TOL = {"first": 1.6e-6, "later": 4e-6, "mean": 3.3e-5, "map": 0.0}
+def _small_icl(cfg):
+    """The ICL configuration on the repository's sequence at the small size
+    (PNGs decoded from disk, resized), from the seeded weights."""
+    from e2eslam_tpu_torch.apps.profile_adaptation import icl_config
+
+    icl = icl_config()
+    icl.MODEL.use_pretrained_models = False
+    icl.DATA.height, icl.DATA.width = cfg.DATA.height, cfg.DATA.width
+    icl.DEMO.sequence_length = cfg.DEMO.sequence_length
+    icl.DEMO.frame_threshold = cfg.DEMO.frame_threshold
+    return icl
+
+
+def _small_compact(cfg):
+    """The compact workload at the small size: the flagship settings with a
+    projective pass after every 2nd keyframe."""
+    cfg = _small_flagship(cfg)
+    cfg.MODEL.compact_period = 2
+    cfg.MODEL.compact_mode = "projective"
+    return cfg
+
+
+# The ICL sequence (float32) and the compact workload (bf16, fused Adam,
+# projective passes) against the CPU: twice the widest gaps over 20 card
+# runs on an H100 (``python3 chip_smoke.py --small-repeats 20 icl
+# compact``: icl 1.05e-7, 0.0087, 0.0091, 0.0046; compact 0.0089, 0.0462,
+# 0.0115, 0.0093; PERF.md §6).
+ICL_TOL = {"first": 2.1e-7, "later": 0.0175, "mean": 0.0181, "map": 0.0092}
+COMPACT_TOL = {"first": 0.0177, "later": 0.0924, "mean": 0.023, "map": 0.0187}
 SMALL_CONFIGS = {
     "default": (_small_loss(), F32_TOL),
     "chamfer": (_small_loss(three3d_loss=False, chamfer_distance=True), F32_TOL),
@@ -1231,6 +1542,8 @@ SMALL_CONFIGS = {
     "flagship": (_small_flagship, BF16_TOL),
     "gradicp": (_small_gradicp, GRADICP_TOL),
     "voxel": (_small_loss(knn_impl="voxel"), VOXEL_TOL),
+    "icl": (_small_icl, ICL_TOL),
+    "compact": (_small_compact, COMPACT_TOL),
 }
 
 
@@ -1307,6 +1620,22 @@ def small_repeats(n, names):
                           "widest_gaps": widest}), flush=True)
 
 
+def run_phases(knn, names, smi):
+    """Only the named phases (``icl``, ``compact``, ``small:CONFIG``), each
+    checked as in the full run; no kernels line and no result line."""
+    stats = {}
+    for name in names:
+        if name == "icl":
+            phase_icl(knn, stats, smi)
+        elif name == "compact":
+            phase_compact(knn, stats, smi, None)
+        elif name.startswith("small:"):
+            phase_small(name.split(":", 1)[1])
+        else:
+            fail(f"unknown phase {name!r}")
+    print(json.dumps({"phase": "phases_done", "phases": names}), flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -1320,9 +1649,11 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
-    repeats = None
+    repeats = only = None
     if argv and argv[0] == "--small-repeats":
         repeats, names = int(argv[1]), argv[2:] or list(SMALL_CONFIGS)
+    elif argv and argv[0] == "--phases":
+        only = argv[1:]
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -1351,6 +1682,9 @@ def main(argv) -> int:
     if repeats is not None:
         small_repeats(repeats, names)
         return 0
+    if only is not None:
+        run_phases(knn, only, smi)
+        return 0
     stats = {}
     # 3. kernels
     phase_kernels(knn, spatial_sort, stats)
@@ -1361,14 +1695,17 @@ def main(argv) -> int:
     # 6. the loss family, two networks
     losses_launches = phase_losses(knn, stats)
     # 7. the flagship configuration, then fusion's determinism
-    flagship_launches = phase_flagship(knn, smi)
+    flagship_launches, flagship_runs = phase_flagship(knn, smi)
     # 8. estimated odometry: the gradicp row, the brute path, view synthesis
     gradicp_launches = phase_gradicp(knn, smi)
     odom_brute_launches = phase_odom_brute(knn, stats)
     est_pose_launches = phase_est_pose(knn, stats)
     # 9. the projective, voxel and active-window associations
     assoc_launches = phase_assoc(knn, stats)
-    # 10. small input, card vs CPU
+    # 10. a sequence from disk with trained weights in and out; compaction
+    icl_launches = phase_icl(knn, stats, smi)
+    compact_launches = phase_compact(knn, stats, smi, flagship_runs)
+    # 11. small input, card vs CPU
     for config in SMALL_CONFIGS:
         phase_small(config)
 
@@ -1390,6 +1727,8 @@ def main(argv) -> int:
                         "odom_brute_launches": odom_brute_launches[key],
                         "est_pose_launches": est_pose_launches[key],
                         "assoc_launches": assoc_launches[key],
+                        "icl_launches": icl_launches[key],
+                        "compact_launches": compact_launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                         "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),

@@ -2,7 +2,7 @@
 
     python -m e2eslam_tpu_torch.apps.profile_adaptation \\
         [--config_path configs/config.yaml]
-        [--workload config|chamfer|flagship|gradicp]
+        [--workload config|chamfer|flagship|gradicp|compact|icl]
         [--set SECTION.key=value ...] [--runs 1] [--deterministic]
         [--profile_frames 12] [--out DIR]
 
@@ -14,16 +14,23 @@ seeded weights, after the kernels are built:
      abs_rel, map points, KNN launches (the spread of identical runs;
      ``--deterministic``: with deterministic algorithms and cuDNN, whose
      runs repeat);
-  3. ``--profile_frames`` frames under ``torch.profiler``: device time by
-     kernel family, the device's launches (kernels and copies), and the
-     device's idle share over the adaptation loop (1 - kernel time / the
-     run's own clock, profiler overhead included).
+  3. ``--profile_frames`` frames (at most the workload's own) under
+     ``torch.profiler``: device time by kernel family, the device's
+     launches (kernels and copies), and the device's idle share over the
+     adaptation loop (1 - kernel time / the run's own clock, profiler
+     overhead included).
 ``--workload chamfer`` applies tools/bench_exact.py's TUM chamfer row to
 the config (``chamfer_config``), ``--workload flagship`` the JAX package's
 benchmark configuration (``flagship_config``: index fusion and
 association, the bf16 CNN, the fused Adam), ``--workload gradicp`` its
 trajectory row (``gradicp_config``: the same with gradICP odometry; the
-run's ATE and RPE are reported too). Prints one JSON object per
+run's ATE and RPE are reported too), ``--workload compact`` the flagship
+with live-map compaction (``compact_config``, tools/bench_flagship_compact.py:
+every 10th keyframe, projective), ``--workload icl`` the ICL-NUIM
+configuration (configs/config_icl_online.yaml, whatever ``--config_path``
+says) on the repository's 10-frame sequence, its network loaded from a
+``depth.pth.tar`` of seeded weights written to a temporary directory
+(``icl_config``). Prints one JSON object per
 run; with ``--out DIR`` also writes them to ``DIR/profile.json``.
 ``--set`` overrides a setting after the workload's (a YAML value, e.g.
 ``--set SETTINGS.compute_dtype=float32``).
@@ -35,12 +42,14 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 
 import torch
-import yaml
 
-from e2eslam_tpu_torch.config import default_config_path, load_yaml
+from e2eslam_tpu_torch.config import apply_overrides, default_config_path, load_yaml
 from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+from e2eslam_tpu_torch.models.convert import save_reference_checkpoint
+from e2eslam_tpu_torch.models.depth_net import make_depth_model
 from e2eslam_tpu_torch.ops import cuda_build
 from e2eslam_tpu_torch.ops import knn as knn_ops
 
@@ -131,16 +140,60 @@ def gradicp_config(cfg):
     return cfg
 
 
+def compact_config(cfg):
+    """The JAX package's flagship-with-compaction row
+    (tools/bench_flagship_compact.py:31-35): ``flagship_config`` with a
+    projective compaction pass after every 10th fused keyframe."""
+    cfg = flagship_config(cfg)
+    cfg.MODEL.compact_period = 10
+    cfg.MODEL.compact_mode = "projective"
+    return cfg
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ICL_CONFIG = os.path.join(ROOT, "configs", "config_icl_online.yaml")
+MINI_ICL_ROOT = os.path.join(ROOT, "tests", "data")  # holds ICL/living_room_traj0_frei_png
+
+
+def icl_config(weights_dir=None):
+    """The reference's ICL-NUIM online configuration
+    (configs/config_icl_online.yaml: ResNet-18 indoor at 320x256, brute
+    three3d, Adam with StepLR, the network from ``load_depth_path``) on the
+    repository's 10-frame ICL-format sequence (640x480 PNGs; synthetic
+    content, tools/make_mini_icl.py). Cut to it: ``DATA.data_path`` the
+    repository's ``tests/data``, ``DEMO.sequence_length`` 10, ``dilation``
+    0, ``stride`` 1, ``frame_threshold`` 0.01. ``weights_dir`` holds the
+    ``depth.pth.tar`` to load (the published ``extras/indoor`` is not in the
+    repository)."""
+    cfg = load_yaml(ICL_CONFIG)
+    cfg.DATA.data_path = MINI_ICL_ROOT
+    cfg.DEMO.sequence_length = 10
+    cfg.DATA.dilation = 0
+    cfg.DATA.stride = 1
+    cfg.DEMO.frame_threshold = 0.01
+    if weights_dir is not None:
+        cfg.MODEL.load_depth_path = weights_dir
+    return cfg
+
+
+def seeded_weights_dir(cfg, dirpath, seed=0):
+    """``dirpath`` with a ``depth.pth.tar`` of the seeded network
+    (``make_depth_model(cfg, seed=seed)``) in the reference's layout."""
+    save_reference_checkpoint(make_depth_model(cfg, seed=seed), dirpath)
+    return dirpath
+
+
 WORKLOADS = {"config": lambda cfg: cfg, "chamfer": chamfer_config,
-             "flagship": flagship_config, "gradicp": gradicp_config}
+             "flagship": flagship_config, "gradicp": gradicp_config,
+             "compact": compact_config, "icl": lambda cfg: icl_config()}
 
 
-def _config(path, workload="config", frames=None, overrides=()):
-    cfg = WORKLOADS[workload](load_yaml(path))
-    for item in overrides:
-        key, value = item.split("=", 1)
-        section, flag = key.split(".")
-        cfg[section][flag] = yaml.safe_load(value)
+def _config(path, workload="config", frames=None, overrides=(), weights_dir=None):
+    if workload == "icl":
+        cfg = icl_config(weights_dir=weights_dir)
+    else:
+        cfg = WORKLOADS[workload](load_yaml(path))
+    apply_overrides(cfg, overrides)
     if frames:
         cfg.DEMO.sequence_length = int(frames)
     return cfg
@@ -160,6 +213,7 @@ def _run(cfg):
         "map_points": result["map_points"],
         "ate": result["ate"],
         "rpe": result["rpe"],
+        "compactions": result["compactions"],
         "launches": {k.__name__: k.launches for k in knn_ops.KERNELS},
     }
 
@@ -188,18 +242,28 @@ def main(argv=None):
            "build_s": cuda_build.build()}
     print(json.dumps(out), flush=True)
 
-    _run(_config(args.config_path, args.workload, 4, args.set))  # warm-up
+    tmp = tempfile.TemporaryDirectory()
+    weights = None
+    if args.workload == "icl":
+        weights = seeded_weights_dir(icl_config(), tmp.name)
+
+    def config(frames=None):
+        return _config(args.config_path, args.workload, frames, args.set, weights)
+
+    _run(config(4))  # warm-up
     out["timed"] = []
     for _ in range(args.runs):
         torch.cuda.reset_peak_memory_stats()
-        timed = _run(_config(args.config_path, args.workload, overrides=args.set))
+        timed = _run(config())
         timed["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out["timed"].append(timed)
         print(json.dumps({"timed": timed}), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # At most the workload's own frames (the icl sequence holds 10).
+    frames = min(args.profile_frames, int(config().DEMO.sequence_length))
     with torch.profiler.profile(activities=acts) as prof:
-        profiled = _run(_config(args.config_path, args.workload, args.profile_frames, args.set))
+        profiled = _run(config(frames))
     # The run's own clock starts after the runner is built and the frames
     # are rendered, so the idle share is over the adaptation loop alone.
     wall_ms = profiled["elapsed_s"] * 1e3

@@ -65,12 +65,23 @@ def default_config_path() -> str:
     return os.path.join(root, "configs", "config.yaml")
 
 
+def apply_overrides(config: Config, items) -> Config:
+    """Apply ``SECTION.key=value`` settings (``value`` read as YAML)."""
+    for item in items:
+        key, value = item.split("=", 1)
+        section, flag = key.split(".")
+        config[section][flag] = yaml.safe_load(value)
+    return config
+
+
 def arguments(argv=None) -> dict:
-    """CLI of the apps: ``--config_path``, ``--name``, ``--data_path``."""
+    """CLI of the apps: ``--config_path``, ``--name``, ``--data_path`` and
+    ``--set SECTION.key=value`` (repeatable, applied last)."""
     parser = argparse.ArgumentParser(description="e2eslam_tpu_torch")
     parser.add_argument("--config_path", type=str, default=default_config_path())
     parser.add_argument("--name", type=str, default="run")
     parser.add_argument("--data_path", type=str, default=None)
+    parser.add_argument("--set", action="append", default=[], metavar="SECTION.key=value")
     return vars(parser.parse_args(argv))
 
 
@@ -81,4 +92,4 @@ def load_config(argv=None) -> Config:
     config.SETTINGS.name = args["name"]
     if args.get("data_path"):
         config.DATA.data_path = args["data_path"]
-    return config
+    return apply_overrides(config, args["set"])

@@ -1,9 +1,10 @@
-"""Dataset construction and batching (synthetic sequences).
+"""Dataset construction and batching.
 
-``make_dataset`` builds the dataset ``DATA.name`` selects; ``load_batch``
-stacks windows into numpy batches with colors scaled to [0, 1] (the
-reference divides by 255 in every app). The ICL/TUM disk loaders are not
-ported yet.
+``make_dataset`` builds the dataset ``DATA.name`` selects: the synthetic
+scene, or ICL-NUIM and TUM sequences from ``{DATA.data_path}/ICL`` and
+``{DATA.data_path}/TUM`` (``DATA.trajectories`` picks trajectory
+directories by name); ``load_batch`` stacks windows into numpy batches with
+colors scaled to [0, 1] (the reference divides by 255 in every app).
 """
 
 from __future__ import annotations
@@ -17,11 +18,21 @@ def make_dataset(config, *, sequence_length: Optional[int] = None):
     """Build the dataset selected by ``DATA.name`` with reference knobs."""
     name = config.DATA.name
     seqlen = sequence_length or config.DEMO.sequence_length
+    if name in ("ICL", "TUM"):
+        from e2eslam_tpu_torch.data.tumicl import ICLDataset, TUMDataset
+
+        # The reference's gradslam ``trajectories`` argument
+        # (absolute_scale.py:81-88): one name or a list.
+        trajectories = config.DATA.get("trajectories") or None
+        if isinstance(trajectories, str):
+            trajectories = [trajectories]
+        cls = ICLDataset if name == "ICL" else TUMDataset
+        return cls(basedir=f"{config.DATA.data_path}/{name}", seqlen=seqlen,
+                   height=config.DATA.height, width=config.DATA.width,
+                   dilation=config.DATA.dilation, stride=config.DATA.stride,
+                   start=config.DATA.start, trajectories=trajectories)
     if name != "synthetic":
-        raise NotImplementedError(
-            f"DATA.name {name!r}: only the synthetic dataset is ported; the "
-            "ICL/TUM loaders come with a later slice of the port"
-        )
+        raise ValueError(f"unknown dataset {name}")
     from e2eslam_tpu_torch.data.synthetic import SyntheticDataset
 
     total = (config.DATA.start or 0) + seqlen * ((config.DATA.dilation or 0) + 1) + 8

@@ -10,6 +10,14 @@ The flagship configuration (index fusion and association) runs the same
 loop where the JAX runner takes its whole-sequence program
 (``adaptation.py:186-223``); the runs agree to the tolerances of
 ``tests/test_torch_flagship.py``.
+
+Around the loop: the network's weights come from the reference's files
+(``MODEL.weights_init_encoder: imagenet``, ``MODEL.use_pretrained_models``)
+and a resumed run's checkpoint (``MODEL.restore_checkpoint``), and the
+adapted network is saved at the end (``MODEL.save_checkpoint``). With
+``MODEL.compact_period`` the live map is compacted after every
+``compact_period``-th fused keyframe (``MODEL.compact_mode``: voxel or
+projective); ``MODEL.compact_voxel`` compacts the final map.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from e2eslam_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from e2eslam_tpu_torch.data.pipeline import load_batch, make_dataset
 from e2eslam_tpu_torch.device import resolve_device, set_full_fp32
 from e2eslam_tpu_torch.engine.refine import PairBatch, RefinementEngine, validate_config
@@ -28,7 +37,16 @@ from e2eslam_tpu_torch.losses.trajectory import (
     absolute_trajectory_error,
     relative_pose_error,
 )
+from e2eslam_tpu_torch.models.convert import load_depth_weights
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
+from e2eslam_tpu_torch.slam.compact import compact_map
+
+BUCKET_QUANTUM = 1 << 20
+
+
+def _quantized(count: int, capacity: int) -> int:
+    """``count`` rounded up to BUCKET_QUANTUM rows, at most ``capacity``."""
+    return min(-(-max(count, 1) // BUCKET_QUANTUM) * BUCKET_QUANTUM, capacity)
 
 
 def _camera_centers(poses: np.ndarray) -> np.ndarray:
@@ -68,12 +86,6 @@ class OnlineAdaptation:
     def __init__(self, config, *, dataset=None, device=None, model=None):
         validate_config(config)
         M = config.MODEL
-        for key in ("use_pretrained_models", "restore_checkpoint", "save_checkpoint"):
-            if M.get(key):
-                raise NotImplementedError(
-                    f"MODEL.{key}: checkpoints come with a later slice of the port")
-        if str(M.get("weights_init_encoder") or "").lower() == "imagenet":
-            raise NotImplementedError("MODEL.weights_init_encoder: imagenet is not ported")
         self.F_ref = int(config.DEMO.get("sequence_length_refinement") or 2)
         if self.F_ref < 2:
             raise ValueError("DEMO.sequence_length_refinement must be at least 2")
@@ -82,6 +94,13 @@ class OnlineAdaptation:
         self.config = config
         self.dataset = dataset if dataset is not None else make_dataset(config)
         model = model if model is not None else make_depth_model(config)
+        # ImageNet encoder, then the task checkpoint, then a resumed run's
+        # weights (e2eslam_tpu/engine/adaptation.py:72-82): the network's
+        # parameters and statistics only; the saved optimizer state is not
+        # restored, as the JAX runner discards it.
+        load_depth_weights(config, model)
+        if M.get("restore_checkpoint"):
+            load_checkpoint(M.restore_checkpoint, model)
         seq_len = int(config.DEMO.sequence_length)
         H, W = int(config.DATA.height), int(config.DATA.width)
         self.capacity = int(M.get("map_capacity") or seq_len * H * W)
@@ -131,7 +150,9 @@ class OnlineAdaptation:
         self._sort_cache = None
         period = int(cfg.LOSS.get("knn_sort_period", 1) or 1)
         last_kc = None
-        regathers = seeded = 0
+        regathers = 0
+        sorted_at, seeded_at, compactions = [], [], []
+        compact_period = int(cfg.MODEL.get("compact_period", 0) or 0)
         self._sync()
         t_start = time.perf_counter()
         for k, (prev, frame) in enumerate(schedule):
@@ -147,6 +168,7 @@ class OnlineAdaptation:
                 bucket = self._bucket(global_map.count, k == 0, bucket)
                 if self._sort_cache_stale(period, bucket, global_map.count):
                     map_index = engine.build_map_index(global_map, bucket)
+                    sorted_at.append(k)
                     if period > 1 and isinstance(map_index, SortedMap):
                         self._sort_cache = {"perm": map_index.perm, "inv": map_index.inv_perm,
                                             "bucket": bucket, "age": 0,
@@ -166,10 +188,25 @@ class OnlineAdaptation:
             # Cross-keyframe seeds: the previous keyframe's final indices are
             # positions in the sorted view, valid while its permutation is.
             seed = last_kc if perm_stable else None
-            seeded += seed is not None
+            if seed is not None:
+                seeded_at.append(k)
             global_map, steps, est_pose, last_kc = engine.process_pair(
                 pair, global_map, map_index, fuse_prev=k == 0, fuse_batch=fuse_batch,
                 knn_init0=seed)
+            if compact_period and (k + 1) % compact_period == 0:
+                # Periodic compaction after every compact_period-th fused
+                # keyframe, from its camera (the JAX whole-sequence program,
+                # refine.py:1351-1358, and host loop, adaptation.py:402), over
+                # the 1M-row slice that holds the valid rows (its bucket
+                # ladder, :1297-1327). It moves rows: the cached permutation
+                # and the seeds (sorted positions) no longer describe the map.
+                before = global_map.count
+                global_map = engine.compact_now(global_map, est_pose, K,
+                                                bucket=_quantized(before, self.capacity))
+                self._sort_cache = None
+                last_kc = None
+                compactions.append({"keyframe": k, "frame": frame, "before": before,
+                                    "after": global_map.count})
             if verbose:
                 for i, m in enumerate(steps):
                     print(f"frame {frame} refine_step {i} "
@@ -183,6 +220,9 @@ class OnlineAdaptation:
         self._sync()
         elapsed = time.perf_counter() - t_start
         total_steps = engine.refinement_steps * len(keyframes)
+        if cfg.MODEL.get("save_checkpoint"):
+            save_checkpoint(cfg.MODEL.save_checkpoint, engine.model, engine.optimizer,
+                            meta={"keyframes": len(keyframes), "refine_steps": total_steps})
 
         metrics = [None if m is None else {k: float(v) for k, v in m.items()}
                    for m in per_pair]
@@ -195,6 +235,13 @@ class OnlineAdaptation:
             rpe = relative_pose_error(gt_kf, est)
         else:
             ate = rpe = float("nan")
+        # End-of-run compaction (MODEL.compact_voxel): the result's map is
+        # the compacted one, ``map_points`` stays the working map's size.
+        raw_points = int(global_map.count)
+        compacted = None
+        if cfg.MODEL.get("compact_voxel"):
+            global_map = compact_map(global_map, voxel=float(cfg.MODEL.compact_voxel))
+            compacted = int(global_map.count)
         result = {
             "map": global_map,
             "keyframes": keyframes,
@@ -204,14 +251,19 @@ class OnlineAdaptation:
             "refine_steps": total_steps,
             "elapsed_s": elapsed,
             "steps_per_sec": total_steps / elapsed if elapsed > 0 else 0.0,
-            "map_points": int(global_map.count),
+            "map_points": raw_points,
             "est_poses": est,
             "gt_kf_poses": gt_kf,
             "ate": ate,
             "rpe": rpe,
             "regathers": regathers,
-            "seeded_keyframes": seeded,
+            "seeded_keyframes": len(seeded_at),
+            "sorted_at": sorted_at,
+            "seeded_at": seeded_at,
+            "compactions": compactions,
         }
+        if compacted is not None:
+            result["map_points_compacted"] = compacted
         if verbose:
             print(f"keyframes {len(keyframes)} mean abs_rel {result['mean_abs_rel']:.5f} "
                   f"map points {result['map_points']} ate {ate:.5f} rpe {rpe:.5f} "

@@ -65,6 +65,7 @@ from e2eslam_tpu_torch.losses.regularizers import (
 from e2eslam_tpu_torch.ops.knn import knn
 from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, morton_codes, sort_map_points
 from e2eslam_tpu_torch.ops.voxel_knn import build_voxel_index, voxel_knn
+from e2eslam_tpu_torch.slam.compact import compact_map, compact_map_projective
 from e2eslam_tpu_torch.slam.fusion import (
     _project_pixels,
     frame_pointcloud,
@@ -99,8 +100,10 @@ KNN_IMPLS = ("brute", "index", "projective", "voxel")
 
 
 def validate_config(config) -> None:
-    """Refuse settings whose code paths the port does not carry yet
-    (ROADMAP.md, queue A), and the JAX package's inconsistent pair
+    """Refuse settings whose code paths the port does not carry yet (the
+    OFT and SCALE refinements, ``compute_dtype`` other than float32 and
+    bfloat16; ROADMAP.md, queue A), a ``knn_impl``, ``fusion_impl`` or
+    ``compact_mode`` the JAX package lacks too, and its inconsistent pair
     (``e2eslam_tpu/engine/refine.py:149-163``)."""
     L, M, O = config.LOSS, config.MODEL, config.OPTIMIZATION
     impl = str(L.get("knn_impl", "brute"))
@@ -113,9 +116,9 @@ def validate_config(config) -> None:
         bad.append(f"LOSS.knn_impl={impl!r} (one of {KNN_IMPLS})")
     if str(M.get("fusion_impl", "scatter")) not in ("scatter", "index"):
         bad.append(f"MODEL.fusion_impl={M.get('fusion_impl')!r} (only scatter and index)")
-    for k in ("compact_period", "compact_voxel"):
-        if M.get(k):
-            bad.append(f"MODEL.{k} (compaction)")
+    if str(M.get("compact_mode", "voxel") or "voxel") not in ("voxel", "projective"):
+        raise ValueError(f"MODEL.compact_mode must be voxel or projective, got "
+                         f"{M.get('compact_mode')!r}")
     if str(O.get("refinement", "PFT")) != "PFT":
         bad.append("OPTIMIZATION.refinement (only PFT)")
     if str(config.SETTINGS.get("compute_dtype", "float32")) not in ("float32", "bfloat16"):
@@ -183,7 +186,13 @@ class RefinementEngine:
                 if isinstance(m, nn.BatchNorm2d):
                     m.requires_grad_(False)
         trainable = [p for p in self.model.parameters() if p.requires_grad]
-        self.optimizer, self.scheduler = make_optimizer(config, trainable)
+        # optax's SGD decays every parameter, whatever its gradient: the JAX
+        # engine masks the frozen ones' gradients to zero (refine.py:974-976)
+        # and unused heads get zero gradients, so the SGD here steps every
+        # parameter, a zero gradient standing in for a missing one.
+        self._zero_grads = (list(self.model.parameters())
+                            if config.OPTIMIZATION.optimizer == "SGD" else [])
+        self.optimizer, self.scheduler = make_optimizer(config, self._zero_grads or trainable)
         M = config.MODEL
         aw = M.get("active_window")
         self.active_window = int(aw) if aw else None
@@ -575,6 +584,9 @@ class RefinementEngine:
         loss, aux = self.assemble_losses(pair, disp, depth, outputs, map_state,
                                          self.initial_depths, map_index, knn_init, thread_knn)
         loss.backward()
+        for p in self._zero_grads:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.scheduler.step()
         knn_cache = aux.pop("_knn_idx", None)
@@ -629,6 +641,32 @@ class RefinementEngine:
         if bucket is not None:
             pts = pts[:bucket]
         return sort_map_points(pts, map_state.count)
+
+    def compact_now(self, map_state: MapState, pose: Tensor, K: Tensor,
+                    bucket: Optional[int] = None) -> MapState:
+        """One configured compaction pass (refine.py:1101-1153):
+        ``MODEL.compact_mode`` projective (from the camera at ``pose``, gated
+        at ``dist_th`` and ``angle_th``) or voxel (``compact_live_voxel``).
+        With ``bucket`` (an upper bound on the count) the pass runs over
+        ``data[:bucket]``, which holds every valid row, and the result is
+        written back into the full buffer."""
+        M = self.config.MODEL
+        full = None
+        if bucket is not None and int(bucket) < map_state.data.shape[0]:
+            full = map_state.data
+            map_state = dataclasses.replace(map_state, data=map_state.data[: int(bucket)])
+        if str(M.get("compact_mode", "voxel") or "voxel") == "projective":
+            H, W = int(self.config.DATA.height), int(self.config.DATA.width)
+            out = compact_map_projective(
+                map_state, pose, K, height=H, width=W,
+                dist_gate=float(M.get("dist_th", 0.05) or 0.05),
+                normal_gate_deg=float(M.get("angle_th", 20.0) or 20.0))
+        else:
+            out = compact_map(map_state, voxel=float(M.get("compact_live_voxel", 0.01) or 0.01))
+        if full is not None:
+            full[: out.data.shape[0]] = out.data
+            out = dataclasses.replace(out, data=full)
+        return out
 
     def process_pair(self, pair: PairBatch, map_state: MapState, map_index=None, *,
                      fuse_prev: bool, fuse_batch: Optional[PairBatch] = None,

@@ -36,11 +36,16 @@ class VoxelIndex(NamedTuple):
     voxel_size: Tensor  # [] float32
 
 
+def saturate_int32(x: Tensor) -> Tensor:
+    """Integral floats as int64, saturated to int32's range as the JAX
+    package's float -> int32 conversion saturates (torch's conversion of an
+    out-of-range float is undefined)."""
+    return x.clamp(_INT32_MIN, 2.0**31).to(torch.int64).clamp(max=_INT32_MAX)
+
+
 def _voxel_coords(points: Tensor, voxel_size: Tensor) -> Tensor:
-    """``floor(points / voxel_size)`` as int64, saturated to int32's range
-    as the JAX package's float -> int32 conversion saturates."""
-    c = torch.floor(points / voxel_size).clamp(_INT32_MIN, 2.0**31)
-    return c.to(torch.int64).clamp(max=_INT32_MAX)
+    """``floor(points / voxel_size)`` as saturated int64."""
+    return saturate_int32(torch.floor(points / voxel_size))
 
 
 def _hash_coords(ix: Tensor, iy: Tensor, iz: Tensor, table_size: int) -> Tensor:

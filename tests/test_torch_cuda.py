@@ -504,3 +504,58 @@ def test_voxel_index_on_the_card_equals_the_cpu(card):
     for x, y in zip(ra, rb):
         assert torch.equal(x.cpu(), y)
     assert bool(rb[2].float().mean() > 0.5)
+
+
+def _dup_map(device, n=300_000, seed=31):
+    """A map with duplicate surfels: half its rows re-observe the other
+    half 1-8 mm off, with index images of two levels over the rows."""
+    from e2eslam_tpu_torch.slam.pointclouds import map_from_arrays
+
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    p = rng.uniform(0.0, 5.0, (half, 3)).astype(np.float32)
+    p[:, 2] += 1.0
+    pts = np.concatenate([p, p + rng.normal(scale=0.004, size=p.shape).astype(np.float32)])
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    nrm[half:] = nrm[:half] + rng.normal(scale=0.05, size=(half, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    data = np.zeros((n + 1000, 16), np.float32)
+    data[:n, 0:3], data[:n, 3:6] = pts, nrm
+    data[:n, 6:9] = rng.random((n, 3))
+    data[:n, 9] = rng.uniform(0.5, 3.0, n)
+    slots = rng.integers(-1, n, 4096).astype(np.int32)
+    fields = dict(data=data, count=n, index_image=slots, index_pose=np.eye(4, dtype=np.float32),
+                  index_image2=np.roll(slots, 7), index_pose2=np.eye(4, dtype=np.float32),
+                  kf_counter=3)
+    return map_from_arrays(fields, device=device)
+
+
+@pytest.mark.cuda
+def test_compaction_on_the_card_matches_the_cpu(card):
+    """The voxel pass on the card keeps the same rows as the CPU's (counts,
+    index images equal; rows to 1e-5, the weighted sums added in another
+    order) and repeats to the byte under deterministic algorithms; the
+    projective pass's counts part by at most 1e-3 (K.p/z rounds to another
+    pixel now and then) and its index images stay consistent."""
+    from e2eslam_tpu_torch.slam.compact import compact_map, compact_map_projective
+
+    K_ = torch.tensor([[200.0, 0, 160, 0], [0, 200, 128, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    pose = torch.eye(4)
+    cpu = compact_map(_dup_map("cpu"), voxel=0.01)
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, b = (compact_map(_dup_map(card), voxel=0.01) for _ in range(2))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(a.data, b.data) and a.count == b.count
+    assert a.count == cpu.count < 300_000
+    for name in ("index_image", "index_image2"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(cpu, name))
+    torch.testing.assert_close(a.data.cpu(), cpu.data, rtol=0, atol=1e-5)
+    pc = compact_map_projective(_dup_map("cpu"), pose, K_, height=256, width=320)
+    pg = compact_map_projective(_dup_map(card), pose.to(card), K_.to(card), height=256,
+                                width=320)
+    assert pc.count < 300_000 and abs(pg.count - pc.count) <= 1e-3 * pc.count
+    for m in (pg, pc):
+        for img in (m.index_image, m.index_image2):
+            assert bool(((img >= -1) & (img < m.count)).all())

@@ -65,7 +65,14 @@ def test_windows_and_keyframe_schedule_equal():
 
 
 def test_disk_datasets_are_refused():
+    """A dataset name the port does not know, and a disk dataset whose
+    directory holds no sequence, are refused (ICL and TUM are ported:
+    tests/test_torch_disk_data.py)."""
     cfg = load_yaml(default_config_path())
+    cfg.DATA.name = "KITTI"
+    with pytest.raises(ValueError, match="unknown dataset"):
+        make_dataset(cfg)
     cfg.DATA.name = "ICL"
-    with pytest.raises(NotImplementedError):
+    cfg.DATA.data_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "no_such_dir")
+    with pytest.raises(FileNotFoundError, match="no ICL trajectories"):
         make_dataset(cfg)

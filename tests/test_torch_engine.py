@@ -167,8 +167,8 @@ def test_online_adaptation_matches_jax(sequence_length):
 def test_unported_settings_are_refused():
     from e2eslam_tpu_torch.engine.refine import validate_config
 
-    refused = {"LOSS.knn_impl": "octree", "MODEL.compact_period": 4,
-               "MODEL.compact_voxel": 0.01, "OPTIMIZATION.refinement": "OFT"}
+    refused = {"LOSS.knn_impl": "octree", "SETTINGS.compute_dtype": "float16",
+               "OPTIMIZATION.refinement": "OFT"}
     for key, value in refused.items():
         with pytest.raises(NotImplementedError):
             validate_config(_cfg(load_yaml, default_config_path(), **{key: value}))
@@ -178,6 +178,9 @@ def test_unported_settings_are_refused():
     # The JAX package's inconsistent pair: index association, scatter fusion.
     with pytest.raises(ValueError):
         validate_config(_cfg(load_yaml, default_config_path(), **{"LOSS.knn_impl": "index"}))
+    with pytest.raises(ValueError):
+        validate_config(_cfg(load_yaml, default_config_path(), **{
+            "MODEL.compact_period": 4, "MODEL.compact_mode": "octree"}))
     ported = {"LOSS.knn_impl": "index", "MODEL.fusion_impl": "index",
               "OPTIMIZATION.fused_update": True, "SETTINGS.compute_dtype": "bfloat16",
               "LOSS.chamfer_distance": True, "LOSS.knn_points": True, "LOSS.geometric": True,
@@ -189,7 +192,10 @@ def test_unported_settings_are_refused():
               "MODEL.depth_network": "monodepth2", "ABLATION.dual_disparity": True,
               "ABLATION.scale_intrinsics": True, "ABLATION.scaled_depth_mode": "constant",
               "DEMO.sequence_length_refinement": 3, "MODEL.odom": "gradicp",
-              "DATA.use_gt_pose": False, "MODEL.active_window": 4096}
+              "DATA.use_gt_pose": False, "MODEL.active_window": 4096,
+              "MODEL.compact_period": 4, "MODEL.compact_mode": "projective",
+              "MODEL.compact_voxel": 0.01, "OPTIMIZATION.optimizer": "Adagrad",
+              "OPTIMIZATION.schedular": "MultiStepLR"}
     validate_config(_cfg(load_yaml, default_config_path(), **ported))
     for impl in ("projective", "voxel"):
         for fusion in ("scatter", "index"):

@@ -28,6 +28,8 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert "e2eslam_tpu_torch.ops.knn" in mods and "e2eslam_tpu_torch.apps.online_adaption" in mods
+    assert {"e2eslam_tpu_torch.checkpoint", "e2eslam_tpu_torch.data.tumicl",
+            "e2eslam_tpu_torch.data.native_loader", "e2eslam_tpu_torch.slam.compact"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -61,6 +63,19 @@ def test_sources_name_no_jax(path):
                 names = [node.module]
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN, (f, n)
+
+
+def test_native_loader_builds_only_into_the_port():
+    """The port compiles the shared ``native/rgbd_loader.cpp`` into its own
+    git-ignored ``data/build/`` and never loads the JAX package's
+    ``native/librgbd_loader.so``."""
+    from e2eslam_tpu_torch.data import native_loader
+
+    assert native_loader.SOURCE == os.path.join(ROOT, "native", "rgbd_loader.cpp")
+    assert native_loader.BUILD_DIR == os.path.join(ROOT, "e2eslam_tpu_torch", "data", "build")
+    assert native_loader.library_path().startswith(native_loader.BUILD_DIR + os.sep)
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        assert "e2eslam_tpu_torch/data/build/" in f.read().split()
 
 
 def test_cuda_is_the_default_and_raises_without_a_card():
