@@ -85,6 +85,14 @@ class OnlineAdaptation:
 
     def __init__(self, config, *, dataset=None, device=None, model=None):
         validate_config(config)
+        mode = str(config.OPTIMIZATION.get("refinement", "PFT"))
+        if mode != "PFT":
+            # The JAX runner never reads the key and runs PFT whatever it
+            # says (ROADMAP.md, section C.3); the port refuses instead.
+            raise ValueError(
+                f"OPTIMIZATION.refinement: {mode} is not an online mode: the online loop "
+                "refines the network (PFT); run OFT with e2eslam_tpu_torch.apps.train_depth_oft "
+                "and SCALE with e2eslam_tpu_torch.apps.absolute_scale")
         M = config.MODEL
         self.F_ref = int(config.DEMO.get("sequence_length_refinement") or 2)
         if self.F_ref < 2:
@@ -254,6 +262,7 @@ class OnlineAdaptation:
             "map_points": raw_points,
             "est_poses": est,
             "gt_kf_poses": gt_kf,
+            "intrinsics": intrinsics[0],
             "ate": ate,
             "rpe": rpe,
             "regathers": regathers,

@@ -36,6 +36,14 @@ distribution only.
 
 Eager PyTorch needs no counterpart of the JAX whole-keyframe and
 whole-sequence programs; the engine is a plain per-step loop.
+
+Beside the PFT step, the offline apps' modes (``refine.py:1410-1537``):
+output fine-tuning (``oft_step``, ``oft_window``: Adam on the depth maps
+themselves, the network frozen), the learned affine scale (``scale_step``:
+Adam on a global scale and bias only), the observability step
+(``refine_step_with_grads``: per-layer gradient norms, the decoder's
+activation gradients, the debug images) and the inference forward
+(``predict_depth``).
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from e2eslam_tpu_torch.losses.regularizers import (
     geometric_consistency_loss,
     sparse_sampling,
 )
+from e2eslam_tpu_torch.models.decoders import decoder_tap_shapes
 from e2eslam_tpu_torch.ops.knn import knn
 from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, morton_codes, sort_map_points
 from e2eslam_tpu_torch.ops.voxel_knn import build_voxel_index, voxel_knn
@@ -99,12 +108,17 @@ class PairBatch(NamedTuple):
 KNN_IMPLS = ("brute", "index", "projective", "voxel")
 
 
+REFINEMENTS = ("PFT", "OFT", "SCALE")
+
+
 def validate_config(config) -> None:
-    """Refuse settings whose code paths the port does not carry yet (the
-    OFT and SCALE refinements, ``compute_dtype`` other than float32 and
-    bfloat16; ROADMAP.md, queue A), a ``knn_impl``, ``fusion_impl`` or
-    ``compact_mode`` the JAX package lacks too, and its inconsistent pair
-    (``e2eslam_tpu/engine/refine.py:149-163``)."""
+    """Refuse settings whose code paths the port does not carry
+    (``compute_dtype`` other than float32 and bfloat16), a ``knn_impl``,
+    ``fusion_impl``, ``compact_mode`` or ``refinement`` the JAX package
+    lacks too, and its inconsistent pair
+    (``e2eslam_tpu/engine/refine.py:149-163``). ``OPTIMIZATION.refinement``
+    names the mode an app runs: the online loop runs PFT, OFT and SCALE run
+    through ``apps.train_depth_oft`` and ``apps.absolute_scale``."""
     L, M, O = config.LOSS, config.MODEL, config.OPTIMIZATION
     impl = str(L.get("knn_impl", "brute"))
     if impl == "index" and str(M.get("fusion_impl", "scatter")) != "index":
@@ -119,8 +133,8 @@ def validate_config(config) -> None:
     if str(M.get("compact_mode", "voxel") or "voxel") not in ("voxel", "projective"):
         raise ValueError(f"MODEL.compact_mode must be voxel or projective, got "
                          f"{M.get('compact_mode')!r}")
-    if str(O.get("refinement", "PFT")) != "PFT":
-        bad.append("OPTIMIZATION.refinement (only PFT)")
+    if str(O.get("refinement", "PFT")) not in REFINEMENTS:
+        bad.append(f"OPTIMIZATION.refinement={O.get('refinement')!r} (one of {REFINEMENTS})")
     if str(config.SETTINGS.get("compute_dtype", "float32")) not in ("float32", "bfloat16"):
         bad.append("SETTINGS.compute_dtype (float32 or bfloat16)")
     if bad:
@@ -165,6 +179,25 @@ def masked_point_loss(pts: Tensor, nn_pts: Tensor, w: Tensor, scale: Optional[Te
     if scale is not None:
         d2 = d2 * scale
     return d2.sum() / wsum
+
+
+class OFTState(NamedTuple):
+    """Output fine-tuning's variable and its optimizer: the depth maps
+    ``[F, H, W, 1]`` (a leaf that requires grad) and a fresh optimizer and
+    schedule over them (``e2eslam_tpu/engine/refine.py:1464``)."""
+
+    depths: Tensor
+    optimizer: torch.optim.Optimizer
+    scheduler: object
+
+
+class ScaleState(NamedTuple):
+    """The learned affine scale: ``params`` ``{"scale"[, "bias"]}`` (0-d
+    leaves that require grad) and their optimizer and schedule."""
+
+    params: Dict[str, Tensor]
+    optimizer: torch.optim.Optimizer
+    scheduler: object
 
 
 class RefinementEngine:
@@ -224,8 +257,9 @@ class RefinementEngine:
     # ------------------------------------------------------------------
     # building blocks
     # ------------------------------------------------------------------
-    def forward_depths(self, colors: Tensor) -> Tuple[Tensor, Tensor]:
-        """Batched depth forward of all frames. Returns (disp, depth)."""
+    def forward_depths(self, colors: Tensor, taps=None) -> Tuple[Tensor, Tensor]:
+        """Batched depth forward of all frames. Returns (disp, depth).
+        ``taps``: the decoder's zero taps (``models/decoders.py``)."""
         cfg = self.config
         # The network's disparity leaves in its compute dtype; the losses and
         # geometry run in float32 (e2eslam_tpu/engine/refine.py:237, :245).
@@ -236,19 +270,26 @@ class RefinementEngine:
             d = self.model(torch.cat([colors, colors.flip(2)], dim=0)).float()
             disp = _merge_dual_disparity(d[:F], d[F:].flip(2))
         else:
-            disp = self.model(colors).float()
+            disp = self.model(colors, taps=taps).float()
         if cfg.MODEL.depth_network == "indoor":
             return disp, indoor_disp_to_depth(disp)
         return disp, disp_to_depth(disp, float(cfg.DATA.min_depth), float(cfg.DATA.max_depth))
 
     def apply_scaling(self, depth: Tensor, gt_depths: Tensor,
-                      intrinsics: Optional[Tensor] = None) -> Tensor:
-        """Focal rescaling, then online median or constant scaling
-        (refine.py:254-284)."""
+                      intrinsics: Optional[Tensor] = None,
+                      scale_params: Optional[Dict[str, Tensor]] = None) -> Tensor:
+        """Focal rescaling, then the learned affine scale when
+        ``scale_params`` is given (and nothing more), else online median or
+        constant scaling (refine.py:254-284)."""
         abl = self.config.ABLATION
         if abl.get("scale_intrinsics", False) and intrinsics is not None:
             # CNN-SLAM-style focal rescaling (reference train_depth.py:317-325).
             depth = depth * (intrinsics[0, 0] / float(abl.focal_pretrain))
+        if scale_params is not None:
+            depth = depth * scale_params["scale"]
+            if "bias" in scale_params:
+                depth = depth + scale_params["bias"]
+            return depth
         if not abl.get("scaled_depth", False):
             return depth
         if abl.get("scaled_depth_mode", "online") == "online":
@@ -572,9 +613,43 @@ class RefinementEngine:
         regularizer's reference).
 
         Returns (metrics, knn cache). Metrics are device tensors of the
-        depth seen by this step's loss (before the update)."""
+        depth seen by this step's loss (before the update); with
+        ``VIZ.log_gradients`` or ``VIZ.tensorboard`` they hold
+        ``grad_norms``, with ``DEBUG.plot`` ``debug_images``."""
+        metrics, knn_cache, _ = self._pft_step(pair, map_state, map_index, knn_init,
+                                               thread_knn, step, return_grads=False)
+        return metrics, knn_cache
+
+    def refine_step_with_grads(self, pair: PairBatch, map_state: Optional[MapState],
+                               map_index=None, knn_init=None, thread_knn: bool = False,
+                               step: int = 0):
+        """The PFT step for observability (refine.py:1590): also returns the
+        gradients ``{parameter name: tensor}`` (zeros for the frozen batch
+        norm and the unused disparity heads, as the JAX package's masked
+        gradient tree has them) and, with ``VIZ.grad_images`` or
+        ``VIZ.tensorboard`` (not with ``ABLATION.dual_disparity``), the
+        decoder's activation gradients as ``metrics["grad_images"]``
+        (NCHW float32, ``models/decoders.py::decoder_tap_shapes``).
+        Returns (metrics, knn cache, gradients)."""
+        return self._pft_step(pair, map_state, map_index, knn_init, thread_knn, step,
+                              return_grads=True)
+
+    def _pft_step(self, pair, map_state, map_index, knn_init, thread_knn, step, *,
+                  return_grads: bool):
+        cfg = self.config
+        obs_grads = bool(cfg.VIZ.get("log_gradients") or cfg.VIZ.get("tensorboard"))
+        obs_images = bool(cfg.DEBUG.get("plot"))
+        taps = None
+        if (return_grads and bool(cfg.VIZ.get("grad_images") or cfg.VIZ.get("tensorboard"))
+                and not cfg.ABLATION.get("dual_disparity", False)):
+            F, H, W = pair.colors.shape[:3]
+            # In the network's compute dtype, as its activations.
+            taps = {k: torch.zeros(shape, dtype=self.model.encoder.dtype,
+                                   device=pair.colors.device,
+                                   requires_grad=True)
+                    for k, shape in decoder_tap_shapes(F, H, W).items()}
         self.optimizer.zero_grad(set_to_none=True)
-        disp, depth = self.forward_depths(pair.colors)
+        disp, depth = self.forward_depths(pair.colors, taps=taps)
         depth = self.apply_scaling(depth, pair.gt_depths, pair.intrinsics)
         if step == 0:
             self.initial_depths = depth.detach()
@@ -587,6 +662,12 @@ class RefinementEngine:
         for p in self._zero_grads:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        grads = None
+        if obs_grads or return_grads:
+            # Every parameter, a zero standing in for a missing gradient
+            # (refine.py:974-977, :999-1005).
+            grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                     for n, p in self.model.named_parameters()}
         self.optimizer.step()
         self.scheduler.step()
         knn_cache = aux.pop("_knn_idx", None)
@@ -595,7 +676,122 @@ class RefinementEngine:
                                     depth[TARGET])
         metrics["total_loss"] = loss.detach()
         metrics.update({k: v.detach() for k, v in aux.items()})
-        return metrics, knn_cache
+        if obs_images:
+            metrics["debug_images"] = self._debug_images(pair, depth, outputs)
+        if obs_grads:
+            norms = torch._foreach_norm([g.float() for g in grads.values()])
+            metrics["grad_norms"] = dict(zip(grads, norms))
+        if taps is not None:
+            metrics["grad_images"] = {k: t.grad.float() for k, t in taps.items()}
+        return metrics, knn_cache, grads if return_grads else None
+
+    def _debug_images(self, pair: PairBatch, depth: Tensor, outputs: Dict) -> Dict[str, Tensor]:
+        """``DEBUG.plot``'s images (refine.py:942-960, reference
+        train_depth.py:551-612): the first source's synthesized target view,
+        its per-pixel photometric error, the target depth and, with
+        ``LOSS.three3d_texture_gate``, the gate."""
+        src = next(i for i in range(pair.colors.shape[0]) if i != TARGET)
+        with torch.no_grad():
+            synth = outputs[("synthesized_frame", src)][0]
+            images = {"synthesized_frame": synth.detach(),
+                      "photometric_error": (synth - pair.colors[TARGET]).abs().mean(dim=-1),
+                      "depth": depth[TARGET, ..., 0].detach()}
+            tgk = self.config.LOSS.get("three3d_texture_gate")
+            if tgk:
+                H, W = pair.colors.shape[1:3]
+                images["texture_gate"] = texture_gate(pair.colors[TARGET],
+                                                      float(tgk)).reshape(H, W)
+        return images
+
+    # ------------------------------------------------------------------
+    # the offline modes: OFT, SCALE, the inference forward
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def predict_depth(self, colors: Tensor) -> Tuple[Tensor, Tensor]:
+        """Inference forward of all frames (refine.py:1647). Returns
+        (disp, depth), unscaled."""
+        return self.forward_depths(colors)
+
+    def oft_state(self, depths: Tensor) -> OFTState:
+        """The depth maps as OFT's variable, with a fresh optimizer and
+        schedule from the config: its update count starts at 0."""
+        d = depths.detach().clone().requires_grad_(True)
+        optimizer, scheduler = make_optimizer(self.config, [d])
+        return OFTState(d, optimizer, scheduler)
+
+    def oft_step(self, oft: OFTState, initial_depths: Tensor, pair: PairBatch,
+                 map_state: Optional[MapState], map_index=None) -> Dict:
+        """One output fine-tuning step (refine.py:1410-1449): the loss of the
+        scaled depth maps, ``disp = 1 / max(depth, 1e-6)``, its gradient with
+        respect to the maps, one optimizer update of ``oft.depths`` in place.
+        ``initial_depths`` is the post-scaling frozen depth (the depth
+        regularizer's reference). No warm starts are threaded: the brute
+        searches seed from the map's tail at every step. Returns the
+        metrics of the depth the loss saw."""
+        oft.optimizer.zero_grad(set_to_none=True)
+        depth = self.apply_scaling(oft.depths, pair.gt_depths, pair.intrinsics)
+        disp = 1.0 / depth.clamp(min=1e-6)
+        outputs = self.view_synthesis(pair, depth)
+        loss, aux = self.assemble_losses(pair, disp, depth, outputs, map_state,
+                                         initial_depths, map_index)
+        loss.backward()
+        oft.optimizer.step()
+        oft.scheduler.step()
+        aux.pop("_knn_idx", None)
+        return self._mode_metrics(pair, depth, loss, aux)
+
+    def oft_window(self, pair: PairBatch, map_state: Optional[MapState]):
+        """A window of output fine-tuning (refine.py:1451-1486): one frozen
+        forward, the post-scaling reference depth, a fresh optimizer, the
+        map's index, then ``OPTIMIZATION.refinement_steps`` OFT steps.
+        Returns (optimized depths, the last step's metrics)."""
+        _, depths = self.predict_depth(pair.colors)
+        initial = self.apply_scaling(depths, pair.gt_depths, pair.intrinsics).detach()
+        oft = self.oft_state(depths)
+        map_index = self.build_map_index(map_state) if map_state is not None else None
+        metrics = None
+        for _ in range(self.refinement_steps):
+            metrics = self.oft_step(oft, initial, pair, map_state, map_index)
+        return oft.depths.detach(), metrics
+
+    def scale_state(self, init_value: float, use_bias: bool) -> ScaleState:
+        """The learned scale ``init_value`` (and a bias of 0) with a fresh
+        optimizer and schedule from the config."""
+        dev = self.device
+        params = {"scale": torch.tensor(float(init_value), device=dev, requires_grad=True)}
+        if use_bias:
+            params["bias"] = torch.tensor(0.0, device=dev, requires_grad=True)
+        optimizer, scheduler = make_optimizer(self.config, list(params.values()))
+        return ScaleState(params, optimizer, scheduler)
+
+    def scale_step(self, sc: ScaleState, pair: PairBatch, map_state: Optional[MapState],
+                   frozen: Tuple[Tensor, Tensor]) -> Dict:
+        """One SCALE step (refine.py:1488-1537): the frozen network's depth
+        times the learned scale (plus its bias), the loss, its gradient with
+        respect to ``sc.params`` alone, one update. ``frozen``: the window's
+        ``predict_depth`` (disp, depth), which no step changes (the JAX step
+        recomputes it each time). Returns the metrics."""
+        if self.config.LOSS.get("depth_regularizer"):
+            raise ValueError("LOSS.depth_regularizer has no effect in SCALE mode "
+                             "(no initial-depth snapshot exists); disable it")
+        disp, raw = frozen
+        sc.optimizer.zero_grad(set_to_none=True)
+        depth = self.apply_scaling(raw, pair.gt_depths, pair.intrinsics, scale_params=sc.params)
+        outputs = self.view_synthesis(pair, depth)
+        loss, aux = self.assemble_losses(pair, disp, depth, outputs, map_state, depth)
+        loss.backward()
+        sc.optimizer.step()
+        sc.scheduler.step()
+        aux.pop("_knn_idx", None)
+        return self._mode_metrics(pair, depth, loss, aux)
+
+    def _mode_metrics(self, pair: PairBatch, depth: Tensor, loss: Tensor, aux: Dict) -> Dict:
+        with torch.no_grad():
+            metrics = depth_metrics(self.config.DATA.name, pair.gt_depths[TARGET],
+                                    depth[TARGET].detach())
+        metrics["total_loss"] = loss.detach()
+        metrics.update({k: v.detach() for k, v in aux.items()})
+        return metrics
 
     @torch.no_grad()
     def fuse_pair(self, pair: PairBatch, map_state: MapState, *, fuse_prev: bool):

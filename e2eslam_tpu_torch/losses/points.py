@@ -52,8 +52,11 @@ def knn_points_loss(
 
 def color_points_loss(gt_colors: Tensor, query_colors: Tensor, indexes: Tensor, *,
                       n_query=None) -> Tensor:
-    """L1 between query-point colours and the colours of their NNs in gt."""
-    err = (query_colors - gt_colors[indexes]).abs().mean(dim=-1)
+    """L1 between query-point colours and the colours of their NNs in gt.
+    The absolute value's gradient at 0 is 1, as ``jnp.abs``'s (torch's is
+    0): a query row whose colour equals its neighbour's still pulls on it."""
+    d = query_colors - gt_colors[indexes]
+    err = torch.where(d >= 0, d, -d).mean(dim=-1)
     return _masked_mean(err, n_query)
 
 

@@ -10,11 +10,17 @@ reference's: ``upconv_{i}_{j}`` at ``(4 - i) * 2 + j`` and ``dispconv_{s}``
 at ``10 + s`` (the indoor decoder has all four heads, as in the reference
 checkpoints; only scale 0 runs). The decoders compute in their input
 features' dtype (``models/layers.py``).
+
+``taps`` (``e2eslam_tpu/models/decoders.py:88-110``): optional zero
+tensors added to the ten decoder conv outputs ``upconv_{i}_{0,1}`` (NCHW,
+shapes from ``decoder_tap_shapes``); their gradients are the loss's
+gradients with respect to those activations, the reference's backward
+hooks (``train_depth.py:138-168``) as plain tensors.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -79,16 +85,21 @@ class _UNetDecoder(nn.ModuleList):
     def head(self, x: Tensor) -> Tensor:
         raise NotImplementedError
 
-    def forward(self, features: Sequence[Tensor], scales=None) -> Dict[int, Tensor]:
+    def forward(self, features: Sequence[Tensor], scales=None,
+                taps: Optional[Dict[str, Tensor]] = None) -> Dict[int, Tensor]:
         scales = self.emit_scales if scales is None else scales
         outputs: Dict[int, Tensor] = {}
         x = features[-1]
         for i in range(4, -1, -1):
             x = self[(4 - i) * 2](x)
+            if taps is not None:
+                x = x + taps[f"upconv_{i}_0"]
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             if self.use_skips and i > 0:
                 x = torch.cat([x, features[i - 1]], dim=1)
             x = self[(4 - i) * 2 + 1](x)
+            if taps is not None:
+                x = x + taps[f"upconv_{i}_1"]
             if i in scales and i in self.head_scales:
                 outputs[i] = self.head(self[10 + self.head_scales.index(i)](x))
         return outputs
@@ -124,3 +135,16 @@ class DepthDecoder(_UNetDecoder):
 
     def head(self, x: Tensor) -> Tensor:
         return torch.sigmoid(x)
+
+
+def decoder_tap_shapes(batch: int, height: int, width: int) -> Dict[str, tuple]:
+    """NCHW shapes of the ten decoder conv outputs (the taps):
+    ``upconv_{i}_0`` at 1/2^(i+1) of the input's size (before the
+    upsample), ``upconv_{i}_1`` at 1/2^i (``e2eslam_tpu/models/decoders.py:146``,
+    which gives them NHWC)."""
+    shapes = {}
+    for i in range(4, -1, -1):
+        c = DECODER_CHANNELS[i]
+        shapes[f"upconv_{i}_0"] = (batch, c, height // 2 ** (i + 1), width // 2 ** (i + 1))
+        shapes[f"upconv_{i}_1"] = (batch, c, height // 2 ** i, width // 2 ** i)
+    return shapes

@@ -10,7 +10,11 @@ every scale they emit); the convolutions run NCHW inside. ``dtype``
 too: the engine casts it to float32 (``e2eslam_tpu/engine/refine.py:237``).
 Batch norm always runs in inference mode (the refinement freezes it, and
 the JAX forward passes ``train=False``): the model is put in ``eval()`` at
-construction and ``train()`` keeps it there.
+construction and ``train()`` keeps it there. ``taps`` reach the decoder
+(``models/decoders.py``).
+
+``AffineScale`` and ``ScaleLayer`` are the reference's learned global depth
+scales (``networks.py:191-215``; ``e2eslam_tpu/models/depth_net.py:65-100``).
 """
 
 from __future__ import annotations
@@ -41,9 +45,9 @@ class _EncoderDecoder(nn.Module):
         # Batch norm stays in inference mode (frozen statistics).
         return super().train(False)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, taps=None) -> Tensor:
         features = self.encoder(x.permute(0, 3, 1, 2))
-        return self.decoder(features, scales=(0,))[0].permute(0, 2, 3, 1)
+        return self.decoder(features, scales=(0,), taps=taps)[0].permute(0, 2, 3, 1)
 
 
 class DispResNetIndoor(_EncoderDecoder):
@@ -61,6 +65,32 @@ class MonodepthNet(_EncoderDecoder):
                  dtype: torch.dtype = torch.float32):
         encoder = ResnetEncoder(num_layers, dtype=dtype)
         super().__init__(encoder, DepthDecoder(encoder.num_ch_enc, scales))
+
+
+class AffineScale(nn.Module):
+    """A learned global scale (+ optional offset) of a depth map: the
+    reference's ``Conv1x1`` initialised to ``init_value``. Published learned
+    values for ICL: scale 6.0891, bias -1.0958 (reference README.md:183-184)."""
+
+    def __init__(self, init_value: float = 0.5, use_bias: bool = False):
+        super().__init__()
+        self.scale = nn.Parameter(torch.tensor(float(init_value)))
+        self.bias = nn.Parameter(torch.tensor(0.0)) if use_bias else None
+
+    def forward(self, x: Tensor) -> Tensor:
+        out = x * self.scale
+        return out if self.bias is None else out + self.bias
+
+
+class ScaleLayer(nn.Module):
+    """A single learned scalar multiplier, initialised to ``init_value``."""
+
+    def __init__(self, init_value: float = 0.5):
+        super().__init__()
+        self.scale = nn.Parameter(torch.tensor(float(init_value)))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x * self.scale
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

@@ -25,7 +25,12 @@ fused keyframe's camera and reading that keyframe's cached index image:
 O(H*W) gathers and scatters, no pass over the map. ``index_nn`` is the 3D
 loss's association through the same image.
 
-The port runs fusion outside autograd and updates the map buffer in place.
+Fusion updates the map buffer in place, outside autograd, unless autograd
+is on and the map or the frame requires grad (``PointFusion.__call__``
+under the gradient-flow experiments, ``apps/gradient_experiments.py``):
+then it builds new buffers out of place, so the gradient reaches the
+frame's depth and colours through every fused and appended row, as it does
+through the JAX package's functional scatters.
 """
 
 from __future__ import annotations
@@ -170,16 +175,32 @@ def projective_nn(state: MapState, frame: RGBDFrame, *, active_window: Optional[
     return start + best_idx.clamp(max=N - 1), best_idx < N
 
 
-@torch.no_grad()
+def _tracks_grad(state: MapState, frame: RGBDFrame) -> bool:
+    """Whether a fusion step must carry autograd: autograd is on and the map
+    or the frame's geometry or colours require grad."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (state.data, frame.vertices, frame.normals, frame.color))
+
+
 def pointfusion_step(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05,
                      angle_th: Optional[float] = 20.0, sigma: float = 0.6,
                      active_window: Optional[int] = None) -> MapState:
-    """Fuse one live frame into the map, in place. Returns the new state
-    (the same buffer, with the new count).
+    """Fuse one live frame into the map: in place (the same buffer, with the
+    new count), or out of place when it carries autograd (``_tracks_grad``).
+    Returns the new state.
 
     ``active_window`` W (``e2eslam_tpu/slam/fusion.py:415-440``): only the
     newest W rows are association and fusion candidates; their fused rows
     are written back first, then the appends land in the full buffer."""
+    if _tracks_grad(state, frame):
+        return _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window,
+                                 inplace=False)
+    with torch.no_grad():
+        return _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window,
+                                 inplace=True)
+
+
+def _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, *, inplace):
     H, W = frame.depth.shape[:2]
     HW = H * W
     N = state.data.shape[0]
@@ -212,7 +233,15 @@ def pointfusion_step(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05
         ok_n, normals_raw / torch.where(ok_n, n2, torch.ones_like(n2)).sqrt(),
         normals_raw)
     confidence_w = c + winner.to(c.dtype) * a
-    sub.data.copy_(pack_rows(points_w, normals_w, colors_w, confidence_w))
+    sub_rows = pack_rows(points_w, normals_w, colors_w, confidence_w)
+    if inplace:
+        sub.data.copy_(sub_rows)
+        data = state.data
+    elif windowed:
+        data = torch.cat([state.data[:start], sub_rows,
+                          state.data[start + sub_rows.shape[0]:]])
+    else:
+        data = sub_rows
 
     # ---- append the live pixels no winner claimed -----------------------
     claimed = torch.zeros(HW, dtype=torch.int64, device=pix.device).scatter_reduce(
@@ -222,9 +251,12 @@ def pointfusion_step(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05
     dest = state.count + order
     ok = new_mask & (dest < N)
     live_rows = pack_rows(live.points, live.normals, live.colors, alpha)
-    state.data[dest[ok]] = live_rows[ok]
+    if inplace:
+        data[dest[ok]] = live_rows[ok]
+    else:
+        data = data.index_put((dest[ok],), live_rows[ok])
     count = min(state.count + int(new_mask.sum()), N)
-    return dataclasses.replace(state, count=count)
+    return dataclasses.replace(state, data=data, count=count)
 
 
 def _lookup(image: Tensor, pose: Tensor, live: FramePoints, frame: RGBDFrame):
@@ -290,12 +322,13 @@ def _index_candidates(state: MapState, frame: RGBDFrame, live: FramePoints,
     return cand, has_cand
 
 
-@torch.no_grad()
 def pointfusion_step_index(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05,
                            angle_th: Optional[float] = 20.0, sigma: float = 0.6,
                            level2_period: int = 1, search_radius: int = 0) -> MapState:
     """Index-image PointFusion (``e2eslam_tpu/slam/fusion.py:234-412``), in
-    place on the map buffer. Returns the new state.
+    place on the map buffer, or out of place when it carries autograd
+    (``_tracks_grad``: then each slot is written once, by its winner, so
+    its gradient reaches that pixel alone). Returns the new state.
 
     Each live pixel's candidate slot comes from ``_index_candidates``. A
     similar candidate (distance below ``dist_th``, normal within
@@ -311,6 +344,16 @@ def pointfusion_step_index(state: MapState, frame: RGBDFrame, *, dist_th: float 
     slot carries its winner's row: duplicates write equal bytes, and the
     result is the same on both devices and in every run.
     """
+    if _tracks_grad(state, frame):
+        return _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_period,
+                                       search_radius, inplace=False)
+    with torch.no_grad():
+        return _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_period,
+                                       search_radius, inplace=True)
+
+
+def _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_period,
+                            search_radius, *, inplace):
     H, W = frame.depth.shape[:2]
     HW = H * W
     N = state.data.shape[0]
@@ -361,16 +404,21 @@ def pointfusion_step_index(state: MapState, frame: RGBDFrame, *, dist_th: float 
     rows = torch.where(similar[:, None], fused_rows.index_select(0, src.clamp(min=0)), live_rows)
     writes = similar | ok
     tgt = torch.where(similar, cand_c, dest)
-    # Pixels that write nothing repeat the last writer's write (or, with no
-    # writer at all, write row 0 back): a harmless duplicate.
-    last = torch.where(writes, pix_ids, -1).amax().view(1)
-    any_w = last >= 0
-    last = last.clamp(min=0)
-    sink_tgt = torch.where(any_w, tgt.index_select(0, last), 0)
-    sink_row = torch.where(any_w[:, None], rows.index_select(0, last), state.data[:1])
-    tgt = torch.where(writes, tgt, sink_tgt)
-    rows = torch.where(writes[:, None], rows, sink_row)
-    state.data.index_copy_(0, tgt, rows)
+    if inplace:
+        # Pixels that write nothing repeat the last writer's write (or, with
+        # no writer at all, write row 0 back): a harmless duplicate.
+        last = torch.where(writes, pix_ids, -1).amax().view(1)
+        any_w = last >= 0
+        last = last.clamp(min=0)
+        sink_tgt = torch.where(any_w, tgt.index_select(0, last), 0)
+        sink_row = torch.where(any_w[:, None], rows.index_select(0, last), state.data[:1])
+        tgt = torch.where(writes, tgt, sink_tgt)
+        rows = torch.where(writes[:, None], rows, sink_row)
+        state.data.index_copy_(0, tgt, rows)
+        data = state.data
+    else:
+        once = writes & (~similar | (src == pix_ids))
+        data = state.data.index_put((tgt[once],), rows[once])
     count = min(state.count + int(new_mask.sum()), N)
 
     # ---- 5. this keyframe's index image; the second level ----------------
@@ -385,5 +433,6 @@ def pointfusion_step_index(state: MapState, frame: RGBDFrame, *, dist_th: float 
             # A slow level: every K-th keyframe's image, held K keyframes.
             idx2, pose2 = new_index, pose
         kctr = None if kctr is None else kctr + 1
-    return dataclasses.replace(state, count=count, index_image=new_index, index_pose=pose,
+    return dataclasses.replace(state, data=data, count=count, index_image=new_index,
+                               index_pose=pose,
                                index_image2=idx2, index_pose2=pose2, kf_counter=kctr)

@@ -10,7 +10,9 @@ active window of the newest map rows) or through the cached index images.
 ``slam(sequence)`` (``train_depth.py:373-385``). ICPSLAM appends every
 valid pixel instead of fusing.
 
-Fusion runs outside autograd and updates the map buffer in place.
+Fusion updates the map buffer in place outside autograd; ``__call__``
+under autograd, with depths or colours that require grad, carries the
+gradient to them through every fusion (``slam/fusion.py``).
 """
 
 from __future__ import annotations

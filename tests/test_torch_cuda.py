@@ -559,3 +559,165 @@ def test_compaction_on_the_card_matches_the_cpu(card):
     for m in (pg, pc):
         for img in (m.index_image, m.index_image2):
             assert bool(((img >= -1) & (img < m.count)).all())
+
+
+def _offline_engine(device, over):
+    """A 64x64 engine (the port's own seeded weights) on ``device``, a window
+    of the synthetic scene and its ground-truth map."""
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.data.synthetic import SyntheticDataset
+    from e2eslam_tpu_torch.engine.refine import PairBatch, RefinementEngine
+    from e2eslam_tpu_torch.models.depth_net import make_depth_model
+    from e2eslam_tpu_torch.slam.slam import PointFusion
+
+    H = W = 64
+    cfg = load_yaml(default_config_path())
+    cfg.DATA.height, cfg.DATA.width = H, W
+    for k, v in over.items():
+        sec, flag = k.split(".")
+        cfg[sec][flag] = v
+    colors, depths, Kin, poses, _ = SyntheticDataset(seqlen=2, height=H, width=W, dilation=3,
+                                                     total_frames=20)[0]
+    pair = PairBatch(*(torch.from_numpy(np.array(x, np.float32)).to(device)
+                       for x in (colors / 255.0, depths, Kin, poses)))
+    engine = RefinementEngine(cfg, make_depth_model(cfg), map_capacity=2 * H * W, device=device)
+    with torch.no_grad():
+        gt_map, _ = PointFusion(odom="gt")(pair.colors, pair.gt_depths, pair.intrinsics,
+                                           pair.poses, capacity=2 * H * W)
+    return engine, pair, gt_map
+
+
+@pytest.mark.cuda
+def test_oft_and_scale_steps_on_the_card_match_the_cpu(card):
+    """One OFT step (brute three3d through the resident and candidate
+    kernels on the card) and one SCALE step, card against CPU: loss terms to
+    rtol 1e-4, the depths to rtol 1e-4 or 5.3e-5 (tests/test_torch_oft_scale.py's
+    DEPTH_ATOL: Adam's step of a pixel whose gradient is of eps's order), the
+    learned scale and bias to rtol 1e-4."""
+    oft = {"LOSS.smoothness": True, "OPTIMIZATION.learning_rate": 1e-3,
+           "ABLATION.scaled_depth_mode": "constant", "ABLATION.scaling_depth": 1.0}
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        engine, pair, gt_map = _offline_engine(dev, oft)
+        _, frozen = engine.predict_depth(pair.colors)
+        initial = engine.apply_scaling(frozen, pair.gt_depths, pair.intrinsics)
+        state = engine.oft_state(frozen)
+        before = [k.launches for k in K.KERNELS]
+        m = engine.oft_step(state, initial, pair, gt_map, engine.build_map_index(gt_map))
+        launched = [k.launches - b for k, b in zip(K.KERNELS, before)]
+        out[dev.type] = (state.depths.detach().cpu(), {k: float(v) for k, v in m.items()},
+                         launched)
+    (d_gpu, m_gpu, launched), (d_cpu, m_cpu, _) = out["cuda"], out["cpu"]
+    # The tail seed and the search: at 64x64 the 8,192-row map is the
+    # resident kernel's, both calls.
+    assert launched == [0, 0, 2]
+    for k in ("photometric", "smoothness", "three3d", "total_loss"):
+        np.testing.assert_allclose(m_gpu[k], m_cpu[k], rtol=1e-4, err_msg=k)
+    torch.testing.assert_close(d_gpu, d_cpu, rtol=1e-4, atol=5.3e-5)
+    scale = {"LOSS.three3d_loss": False, "LOSS.smoothness": True,
+             "OPTIMIZATION.learning_rate": 1e-2, "ABLATION.scaled_depth": False}
+    learned = {}
+    for dev in (card, torch.device("cpu")):
+        engine, pair, _ = _offline_engine(dev, scale)
+        sc = engine.scale_state(2.0, True)
+        m = engine.scale_step(sc, pair, engine.make_empty_map(),
+                              engine.predict_depth(pair.colors))
+        learned[dev.type] = ({k: float(v.detach()) for k, v in sc.params.items()},
+                             float(m["total_loss"]))
+    for k in ("scale", "bias"):
+        np.testing.assert_allclose(learned["cuda"][0][k], learned["cpu"][0][k], rtol=1e-4,
+                                   atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(learned["cuda"][1], learned["cpu"][1], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_at_the_recover_call_shape(card):
+    """The gradient-flow experiment's cold call at 320x256: 163,840 buffer
+    rows query 163,840 (past RES_MAX_ROWS, so the dispatcher takes the dense
+    kernel), refs and queries on box walls; the kernel against dense_plain
+    on the same card tensors."""
+    g = torch.Generator(device=card).manual_seed(5)
+    n = 2 * 320 * 256
+    box = torch.tensor([4.0, 3.0, 5.0], device=card)
+
+    def walls(m):
+        p = torch.rand(m, 3, generator=g, device=card) * box
+        axis = torch.randint(0, 3, (m,), generator=g, device=card)
+        side = torch.randint(0, 2, (m,), generator=g, device=card).float()
+        p[torch.arange(m, device=card), axis] = side * box[axis]
+        return p
+
+    q, r = walls(n), walls(n)
+    nq, nr = 150_000, 160_000
+    assert -(-n // K.RT) * K.RT > K.RES_MAX_ROWS
+    before = [k.launches for k in K.KERNELS]
+    d, i = K.knn(q, r, nr, nq)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(K.KERNELS, before)] == [1, 0, 0]
+    q4 = K._pad_rows(torch.cat([q, q.new_ones(n, 1)], 1), -(-n // K.QT) * K.QT)
+    bias = torch.where(torch.arange(n, device=card) < nr, -0.5 * (r * r).sum(1),
+                       torch.full((n,), K.NEG, device=card))
+    r4 = K._pad_rows(torch.cat([r, bias[:, None]], 1), -(-n // K.RT) * K.RT)
+    r4[n:, 3] = K.NEG
+    args = (q4, r4, K._tile_boxes(r4[:, :3], K.RT), None, None, nq, nr, K.RT)
+    s_k, i_k = K.dense_kernel(*args)
+    s_p, i_p = K.dense_plain(*args)
+    _assert_same_nn(q4, r4, s_k, i_k, s_p, i_p, nq)
+    assert torch.equal(i[:nq], i_k[:nq])
+    assert bool((i_k[:nq] < nr).all())
+
+
+@pytest.mark.cuda
+def test_recover_depth_gradient_on_the_card_matches_the_cpu(card):
+    """gradient_experiments' loss and its gradient with respect to the
+    corrupted depths on a 2-frame 64x96 window, card against CPU: the loss
+    to rtol 1e-4, the gradient to 2e-3 of its largest entry but at the
+    pixels of the map rows that differ between the devices: a row whose KNN
+    picks differ (float32 ties, held to fp32_distance_bound) or whose fused
+    values differ (a projection rounding to another pixel) feeds another
+    residual back to the two pixels it was made from, at most."""
+    from e2eslam_tpu_torch.apps.gradient_experiments import make_loss_fn
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.data.synthetic import SyntheticDataset
+    from e2eslam_tpu_torch.engine.refine import PairBatch
+    from e2eslam_tpu_torch.slam.slam import PointFusion
+    from e2eslam_tpu_torch.utils.corruption import corrupt_rgbd
+
+    H, W = 64, 96
+    cfg = load_yaml(default_config_path())
+    colors, depths, Kin, poses, _ = SyntheticDataset(seqlen=2, height=H, width=W, dilation=2,
+                                                     total_frames=12)[0]
+    host = [torch.from_numpy(np.array(x, np.float32)) for x in (colors / 255.0, depths, Kin,
+                                                                poses)]
+    nc, nd = corrupt_rgbd(cfg, torch.Generator().manual_seed(0), host[0][None], host[1][None])
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        pair = PairBatch(*(x.to(dev) for x in host))
+        loss_fn = make_loss_fn(cfg, pair, nc[0].to(dev), nd[0].to(dev))
+        v = {"depths": nd[0].to(dev).clone().requires_grad_(True)}
+        loss, _ = loss_fn(v)
+        loss.backward()
+        slam = PointFusion(odom="gt")
+        with torch.no_grad():
+            gt_map, _ = slam(pair.colors, pair.gt_depths, pair.intrinsics, pair.poses,
+                             capacity=2 * H * W)
+            noisy, _ = slam(nc[0].to(dev), nd[0].to(dev), pair.intrinsics, pair.poses,
+                            capacity=2 * H * W)
+        _, nn = K.knn(noisy.points, gt_map.points, gt_map.count, noisy.count)
+        res[dev.type] = (float(loss.detach()), v["depths"].grad.cpu(), noisy.data.cpu(),
+                         noisy.count, nn[:noisy.count].long().cpu(), gt_map.points.cpu())
+    (l_g, g, rows_g, n, nn_g, ref), (l_c, w, rows_c, n_c, nn_c, _) = res["cuda"], res["cpu"]
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+    assert n == n_c
+    moved = (rows_g[:n] - rows_c[:n]).abs().amax(dim=1) > 1e-6
+    picks = (nn_g != nn_c) & ~moved
+    q, r = rows_c[:n, :3].double(), ref.double()
+    gap = (((q - r[nn_g]) ** 2).sum(1) - ((q - r[nn_c]) ** 2).sum(1)).abs()[picks]
+    bound = torch.maximum(K.fp32_distance_bound(q[picks], r[nn_g[picks]]),
+                          K.fp32_distance_bound(q[picks], r[nn_c[picks]]))
+    assert bool((gap <= bound).all())
+    differing = int((moved | picks).sum())
+    assert differing <= n // 100, differing
+    assert float(w.abs().max()) > 0
+    off = (g - w).abs() > 2e-3 * float(w.abs().max())
+    assert int(off.sum()) <= 2 * differing, (int(off.sum()), differing)

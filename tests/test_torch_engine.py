@@ -165,16 +165,21 @@ def test_online_adaptation_matches_jax(sequence_length):
 
 
 def test_unported_settings_are_refused():
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
     from e2eslam_tpu_torch.engine.refine import validate_config
 
     refused = {"LOSS.knn_impl": "octree", "SETTINGS.compute_dtype": "float16",
-               "OPTIMIZATION.refinement": "OFT"}
+               "OPTIMIZATION.refinement": "OFTT"}
     for key, value in refused.items():
         with pytest.raises(NotImplementedError):
             validate_config(_cfg(load_yaml, default_config_path(), **{key: value}))
-    with pytest.raises(NotImplementedError):
-        validate_config(_cfg(load_yaml, default_config_path(), **{
-            "OPTIMIZATION.refinement": "SCALE"}))
+    # OFT and SCALE are ported modes of the offline apps: the engine takes
+    # them, the online loop refuses them and names the apps that run them.
+    for mode, app in (("OFT", "train_depth_oft"), ("SCALE", "absolute_scale")):
+        cfg = _cfg(load_yaml, default_config_path(), **{"OPTIMIZATION.refinement": mode})
+        validate_config(cfg)
+        with pytest.raises(ValueError, match=app):
+            OnlineAdaptation(cfg, device="cpu")
     # The JAX package's inconsistent pair: index association, scatter fusion.
     with pytest.raises(ValueError):
         validate_config(_cfg(load_yaml, default_config_path(), **{"LOSS.knn_impl": "index"}))

@@ -30,6 +30,13 @@ def test_every_port_module_imports_without_jax():
     assert "e2eslam_tpu_torch.ops.knn" in mods and "e2eslam_tpu_torch.apps.online_adaption" in mods
     assert {"e2eslam_tpu_torch.checkpoint", "e2eslam_tpu_torch.data.tumicl",
             "e2eslam_tpu_torch.data.native_loader", "e2eslam_tpu_torch.slam.compact"} <= set(mods)
+    offline = {f"e2eslam_tpu_torch.apps.{a}" for a in (
+        "common", "train_depth", "train_depth_oft", "absolute_scale", "test_depth_scaling",
+        "median_scaling", "pose_checker", "gradient_experiments", "demo")}
+    offline |= {f"e2eslam_tpu_torch.{m}" for m in (
+        "utils", "utils.corruption", "utils.focal", "viz", "viz.logging", "viz.images",
+        "viz.pointcloud_export", "viz.animation")}
+    assert offline <= set(mods), sorted(offline - set(mods))
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -108,3 +115,21 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     out = subprocess.run([sys.executable, str(lone)], capture_output=True, text=True,
                          timeout=120, cwd=tmp_path)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("app", ["train_depth", "train_depth_oft", "absolute_scale",
+                                 "test_depth_scaling", "median_scaling",
+                                 "gradient_experiments", "demo"])
+def test_offline_apps_default_to_cuda(app):
+    """Each offline app runs on CUDA unless asked for the CPU: without a card
+    its CLI raises before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card path cannot be shown here")
+    import importlib
+
+    from e2eslam_tpu_torch.config import default_config_path
+
+    mod = importlib.import_module(f"e2eslam_tpu_torch.apps.{app}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--config_path", default_config_path(), "--set", "DATA.height=64",
+                  "--set", "DATA.width=64", "--set", "DEMO.sequence_length=5"])

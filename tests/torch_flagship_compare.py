@@ -10,6 +10,17 @@ copy ``profile_adaptation.flagship_config``) at ``--height`` x 5/4 of it,
 ``--frames`` frames, the JAX runner with its whole-sequence program, the
 port from the same flax weights. Prints one JSON line per keyframe and a
 summary line.
+
+    python tests/torch_flagship_compare.py --height 256 --frames 60 \\
+        --seeds 0 1 2 [--sides jax port] [--limit-min 20] [--out FILE]
+
+runs each side of ``--sides`` alone, once per weight seed (the flax
+initialisation from ``jax.random.key(seed)``; the port loads the same
+weights), each run in a process of its own stopped after ``--limit-min``
+minutes, and prints one summary line per run (side, seed, mean abs_rel,
+keyframes, map size, seconds; or the time a stopped run had): the spread
+of mean abs_rel over seeds on each side, at the flagship's full size with
+the defaults above.
 """
 
 import os
@@ -23,12 +34,15 @@ import conftest  # noqa: E402,F401  (JAX on the CPU, as the tests run it)
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import subprocess  # noqa: E402
+import time  # noqa: E402
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 import bench  # noqa: E402
 from e2eslam_tpu.engine.adaptation import OnlineAdaptation as JaxRunner  # noqa: E402
+from e2eslam_tpu.models.depth_net import init_depth_model  # noqa: E402
 from e2eslam_tpu_torch.apps.profile_adaptation import flagship_config  # noqa: E402
 from e2eslam_tpu_torch.config import default_config_path, load_yaml  # noqa: E402
 from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation  # noqa: E402
@@ -36,27 +50,96 @@ from e2eslam_tpu_torch.models.convert import load_jax_params  # noqa: E402
 from e2eslam_tpu_torch.models.depth_net import make_depth_model  # noqa: E402
 
 
+def _runner(args, seed):
+    """The JAX runner at the requested size, its network initialised from
+    ``jax.random.key(seed)``; returns (runner, host weights)."""
+    cfg = bench.flagship_cfg()
+    cfg.DATA.height, cfg.DATA.width = args.height, args.height * 5 // 4
+    cfg.DEMO.sequence_length = args.frames
+    cfg.SETTINGS.compute_dtype = args.dtype
+    jr = JaxRunner(cfg)
+    if seed:
+        params, stats = init_depth_model(jr.model, jax.random.key(seed), args.height,
+                                         args.height * 5 // 4)
+        jr.state = jr.engine.init_state(params, stats, (jr.F_ref, args.height,
+                                                        args.height * 5 // 4))
+    weights = jax.tree_util.tree_map(np.asarray, jax.device_get(
+        (jr.state.params, jr.state.batch_stats)))
+    return jr, weights
+
+
+def _port_run(args, weights):
+    cfg = flagship_config(load_yaml(default_config_path()))
+    cfg.DATA.height, cfg.DATA.width = args.height, args.height * 5 // 4
+    cfg.DEMO.sequence_length = args.frames
+    cfg.SETTINGS.compute_dtype = args.dtype
+    model = make_depth_model(cfg)
+    load_jax_params(model, *weights)
+    return OnlineAdaptation(cfg, device="cpu", model=model).run(verbose=False)
+
+
+def _one(args):
+    """One side, one seed: its summary line."""
+    t0 = time.perf_counter()
+    jr, weights = _runner(args, args.seed)
+    r = jr.run(verbose=False) if args.side == "jax" else _port_run(args, weights)
+    print(json.dumps({"side": args.side, "seed": args.seed, "height": args.height,
+                      "frames": args.frames, "dtype": args.dtype,
+                      "mean_abs_rel": float(r["mean_abs_rel"]),
+                      "keyframes": int(r["num_keyframes"]),
+                      "map_points": int(r["map_points"]),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def _seeds(args, argv):
+    """Each side alone per seed, each run in its own process under the time
+    limit; a stopped run's line says how far it got."""
+    lines = []
+    for seed in args.seeds:
+        for side in args.sides:
+            cmd = [sys.executable, os.path.abspath(__file__), "--height", str(args.height),
+                   "--frames", str(args.frames), "--dtype", args.dtype, "--side", side,
+                   "--seed", str(seed)]
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=args.limit_min * 60)
+                rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+                line = json.loads(rows[-1]) if rows else {
+                    "side": side, "seed": seed, "failed": proc.stderr[-500:]}
+            except subprocess.TimeoutExpired:
+                line = {"side": side, "seed": seed, "stopped_after_s": time.perf_counter() - t0,
+                        "reason": f"no result within {args.limit_min} min (the JAX side "
+                                  "compiles and runs its whole-sequence program as one call, "
+                                  "so it reports nothing before the end)"}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if args.out:
+                with open(args.out, "a") as f:
+                    f.write(json.dumps(line) + "\n")
+    return lines
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--height", type=int, default=128)
     p.add_argument("--frames", type=int, default=20)
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    p.add_argument("--seeds", type=int, nargs="*", default=None)
+    p.add_argument("--sides", nargs="+", choices=("jax", "port"), default=["jax", "port"])
+    p.add_argument("--side", choices=("jax", "port"), default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--limit-min", type=float, default=20.0)
+    p.add_argument("--out", default=None)
     args = p.parse_args(argv)
+    if args.side:
+        return _one(args)
+    if args.seeds is not None:
+        return _seeds(args, argv)
 
-    def setup(cfg):
-        cfg.DATA.height, cfg.DATA.width = args.height, args.height * 5 // 4
-        cfg.DEMO.sequence_length = args.frames
-        cfg.SETTINGS.compute_dtype = args.dtype
-        return cfg
-
-    jr = JaxRunner(setup(bench.flagship_cfg()))
-    weights = jax.tree_util.tree_map(np.asarray, jax.device_get(
-        (jr.state.params, jr.state.batch_stats)))
+    jr, weights = _runner(args, 0)
     want = jr.run(verbose=False)
-    cfg = setup(flagship_config(load_yaml(default_config_path())))
-    model = make_depth_model(cfg)
-    load_jax_params(model, *weights)
-    got = OnlineAdaptation(cfg, device="cpu", model=model).run(verbose=False)
+    got = _port_run(args, weights)
     for k, (a, b) in enumerate(zip(got["metrics"], want["metrics"])):
         print(json.dumps({"keyframe": k, **{f"{key}_{side}": float(m[key])
                                              for key in ("abs_rel", "total_loss", "three3d")
