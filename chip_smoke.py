@@ -110,7 +110,41 @@ Phases (any failure ends the script with a non-zero exit):
      demo     apps/demo on 6 frames: one snapshot per keyframe, counts never
               decreasing, the PLY and the animation HTML written to the
               git-ignored chip_smoke_out/ (emptied at the end) and read back;
- 12. small    the default path, the chamfer one, index fusion and
+ 12. batched  several sequences at once (parallel/adaptation.py: the depth
+              networks of all in one vmapped call): 4 synthetic sequences
+              of configs/config.yaml at 320x256 (16 frames, staggered
+              starts, the last frozen after its sixth frame: ragged
+              schedules) against each sequence's solo OnlineAdaptation run,
+              with deterministic algorithms (equal keyframes; a sequence
+              alone through the runner equal to its solo run within
+              BATCHED_ONE_TOL; B = 4 the same in another order of the
+              sequences) and with the default ones (the path whose
+              launches are counted: equal keyframes, the first two
+              keyframes' abs_rel and the mean within BATCHED_FIRST_TOL and
+              BATCHED_MEAN_TOL, twice the widest gaps of
+              ``--batched-repeats 20``; the candidate and resident kernels
+              launched, the largest call of each held); B = 1;
+              the host synchronisations an
+              event (``torch.cuda.set_sync_debug_mode``); the flagship
+              settings at B = 4 over 12 frames (finite abs_rel, no KNN
+              launch); aggregate steps/s printed for each;
+     sharded  the map-sharded exact search (ops/knn_sharded.py) on one
+              card: a 2,621,440-row map (4 shards of 655,360) of wall
+              points, 81,920 frame points, valid counts ending mid-shard 3
+              (2,500,000) and in shard 1 (shards 2-3 empty): the 4 shard
+              searches one after another and their combine against the
+              unsharded search (distances within the float32 bound,
+              indices equal where the neighbour is unique), the sharded
+              chamfer's value and frame gradient against
+              losses/points.py's (SHARDED_RTOL; the gradient to its float32
+              accumulation bound once float32 ties picked differently are
+              accounted for, chamfer_grad_check), per-shard times, routes
+              and launches; the largest shard call (dense kernel) held and
+              timed (the kernels line's ``sharded shard`` entry); then one
+              world-size-1 NCCL group through knn_map_sharded and
+              chamfer_distance_map_sharded. More than one card is not
+              exercised here: the multi-rank paths are tested on gloo;
+ 13. small    the default path, the chamfer one, index fusion and
               association (float32), the flagship settings, gradICP, the
               voxel association, the ICL sequence and the compact workload
               at 64x64 on the card, with deterministic
@@ -121,10 +155,12 @@ Phases (any failure ends the script with a non-zero exit):
               ``python3 chip_smoke.py --small-repeats N [config ...]``, which
               runs only this phase, N times, and reports the gaps).
 ``python3 chip_smoke.py --phases icl compact train_depth oft scale
-scaling_tools recover demo small:icl ...`` runs only the named phases
+scaling_tools recover demo batched sharded small:icl ...`` runs only the
+named phases
 (after the build), each with its checks, and prints neither the kernels
 line nor the result; ``--small-repeats N scale scaling_tools`` measures
-the card-vs-CPU gaps behind SCALE_TOL.
+the card-vs-CPU gaps behind SCALE_TOL, ``--batched-repeats N`` the
+batched-vs-solo gaps behind BATCHED_MEAN_TOL.
 The second-to-last line is the kernels' JSON line (the resident kernel has
 a second entry, ``"call": "chamfer b->a"``, for its map->frame calls, the
 dense kernel one for the recover phase's cold calls, ``"call": "recover
@@ -362,21 +398,26 @@ def device_ms(fn, kernel: str, reps: int):
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    others = named = count = 0
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if not dev_us or evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if evt.key.startswith(kernel):
-            named, count = named + dev_us, count + evt.count
-        else:
-            others += dev_us
+    # A profiling window that records no event at all is run once more (seen
+    # once late in a long run, after many windows).
+    for _ in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        others = named = count = 0
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            if not dev_us or evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if evt.key.startswith(kernel):
+                named, count = named + dev_us, count + evt.count
+            else:
+                others += dev_us
+        if count:
+            break
     if not count:
         fail(f"the profiler saw no launch of {kernel}")
     # The profiler may drop an event: the named kernel's mean is over the
@@ -1983,6 +2024,431 @@ def phase_demo(knn, smi):
     return launches
 
 
+# --- several sequences at once on the card, and the map-sharded search -----
+
+BATCHED_B, BATCHED_FRAMES = 4, 16
+# A batched sequence against its solo run, its first two keyframes' abs_rel
+# and its mean: twice the widest gaps of ``--batched-repeats 20`` (default
+# algorithms, NVIDIA H100 80GB HBM3 at 700 W: 0.01228 and 0.02117). The grouped
+# convolution rounds differently (6e-7 relative on the disparity) and
+# Adam's sign-normalised first steps carry that to the abs_rel: with
+# deterministic algorithms the batched runs still differ from the solo ones
+# by up to 1.3e-3 at the first keyframe and 4.5e-3 at the second.
+BATCHED_FIRST_TOL = 0.0246
+BATCHED_MEAN_TOL = 0.0424
+# One sequence through the batched runner (its network called unbatched)
+# against its solo run, deterministic algorithms: the same arithmetic.
+BATCHED_ONE_TOL = 1e-6
+
+
+def _batched_sequences(b=BATCHED_B, frames=BATCHED_FRAMES):
+    """``b`` synthetic sequences at 320x256 with staggered starts
+    (``profile_adaptation.make_sequences``), the last one frozen after its
+    sixth frame (fewer keyframes: ragged schedules); one in-memory dataset
+    per sequence and the stacked arrays the batched runner takes, read back
+    through the datasets' scaling so both runners see the same values."""
+    import numpy as np
+
+    from e2eslam_tpu_torch.apps.profile_adaptation import make_sequences
+    from e2eslam_tpu_torch.data.pipeline import ArrayDataset, load_batch
+
+    c, d, K, p = make_sequences(b, frames, 256, 320)
+    if b > 1:
+        c[-1, 6:], d[-1, 6:], p[-1, 6:] = c[-1, 5], d[-1, 5], p[-1, 5]
+    sets = [ArrayDataset(c[i], d[i], K[i], p[i]) for i in range(b)]
+    batches = [load_batch(s, [0]) for s in sets]
+    return sets, tuple(np.concatenate([x[k] for x in batches]) for k in range(4))
+
+
+def _batched_cfg(frames=BATCHED_FRAMES):
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+
+    cfg = load_yaml(default_config_path())  # 320x256, ResNet-18, brute three3d, 3 steps
+    cfg.DEMO.sequence_length = frames
+    return cfg
+
+
+def _solo(cfg, dataset, i):
+    """Sequence ``i`` alone through ``OnlineAdaptation``, seeded
+    ``SETTINGS.seed + i`` as the batched runner seeds it."""
+    import copy
+
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+    from e2eslam_tpu_torch.models.depth_net import make_depth_model
+
+    c = copy.deepcopy(cfg)
+    c.SETTINGS.seed = 1 + i
+    return OnlineAdaptation(c, dataset=dataset, model=make_depth_model(cfg)).run(verbose=False)
+
+
+def _gap(par, solo):
+    """A batched sequence's result against its solo run's."""
+    first = [abs(a - m["abs_rel"]) for a, m in zip(par["per_pair_abs_rel"][:2],
+                                                   solo["metrics"][:2])]
+    return {"keyframes_equal": par["keyframes"] == solo["keyframes"],
+            "first_two": max(first or [0.0]),
+            "mean": abs(par["mean_abs_rel"] - solo["mean_abs_rel"]),
+            "abs_rel": [round(a, 6) for a in par["per_pair_abs_rel"]],
+            "solo_abs_rel": [round(m["abs_rel"], 6) for m in solo["metrics"]]}
+
+
+def batched_vs_solo(knn, rec=None):
+    """The batched runner on BATCHED_B sequences (default algorithms), then
+    each sequence alone. Returns (batched line with its launches,
+    per-sequence gaps)."""
+    from e2eslam_tpu_torch.apps.profile_adaptation import run_batched
+
+    cfg = _batched_cfg()
+    sets, seqs = _batched_sequences()
+    with rec if rec is not None else contextlib.nullcontext():
+        line, out = run_batched(cfg, seqs)
+    line["launches"] = launch_counts(knn)
+    return line, [_gap(out["per_sequence"][i], _solo(cfg, s, i)) for i, s in enumerate(sets)]
+
+
+def host_syncs_per_event(cfg, seqs):
+    """Host synchronisations of the batched runner per keyframe event: the
+    synchronising CUDA calls ``torch.cuda.set_sync_debug_mode`` reports
+    over a run, divided by its events."""
+    import warnings
+
+    import torch
+
+    from e2eslam_tpu_torch.parallel.adaptation import ParallelAdaptation
+    from e2eslam_tpu_torch.models.depth_net import make_depth_model
+
+    b, L, h, w = seqs[0].shape[:4]
+    par = ParallelAdaptation(cfg, make_depth_model(cfg), map_capacity=L * h * w, n_seq=b)
+    state = par.init_state()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = par.run(state, seqs, threshold=float(cfg.DEMO.frame_threshold))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return syncs / out["num_events"], syncs, out["num_events"]
+
+
+def phase_batched(knn, stats, smi):
+    """BATCHED_B sequences of the default config at full width through the
+    batched runner against their solo runs: with deterministic algorithms
+    (one sequence through the runner equals its solo run; B = 4 is the same
+    whatever the sequences' order), then with the default ones (the main
+    path: its launches, the first keyframes' and the mean abs_rel's bands);
+    B = 1; the host syncs an event; the flagship settings at B = 4."""
+    from e2eslam_tpu_torch.apps.profile_adaptation import (
+        flagship_config,
+        make_sequences,
+        run_batched,
+    )
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+
+    cfg = _batched_cfg()
+    sets, seqs = _batched_sequences()
+    perm = [2, 3, 0, 1]
+    with algorithms(True):
+        solos = [_solo(cfg, s, i) for i, s in enumerate(sets)]
+        b4 = run_batched(cfg, seqs)[1]["per_sequence"]
+        b4p = run_batched(cfg, tuple(x[perm] for x in seqs))[1]["per_sequence"]
+        one = {i: run_batched(cfg, tuple(x[i:i + 1] for x in seqs))[1]["per_sequence"][0]
+               for i in (0, 2)}
+    det = {"phase": "batched", "case": "deterministic",
+           "B4": [_gap(b4[i], solos[i]) for i in range(BATCHED_B)],
+           "B4_order": perm,
+           "B4_reordered_equal": all(b4p[perm.index(i)]["per_pair_abs_rel"]
+                                     == b4[i]["per_pair_abs_rel"] for i in range(BATCHED_B)),
+           "B1": {i: _gap(r, solos[i]) for i, r in one.items()}}
+    print(json.dumps(det), flush=True)
+    for i, g in enumerate(det["B4"]):
+        if not g["keyframes_equal"]:
+            fail(f"batched: sequence {i} chose other keyframes than its solo run")
+    if not det["B4_reordered_equal"]:
+        fail("batched: a sequence's result depends on its slot in the batch")
+    for i, g in det["B1"].items():
+        if not g["keyframes_equal"] or g["first_two"] > BATCHED_ONE_TOL:
+            fail(f"batched: sequence {i} alone through the runner is {g['first_two']:.3g} "
+                 f"off its solo run (tolerance {BATCHED_ONE_TOL})")
+    # The main path: the default algorithms, launches counted.
+    for k in knn.KERNELS:
+        k.launches = 0
+    rec = Recorder(knn)
+    line, gaps = batched_vs_solo(knn, rec)
+    launches = line["launches"]
+    print(json.dumps({"phase": "batched", "case": "default", **line, "solo": gaps,
+                      "nvidia_smi": smi}), flush=True)
+    for key in ("cand", "resident"):
+        if launches[key] == 0:
+            fail(f"batched: the run launched no {key} kernel")
+    if rec.warm_dense:
+        fail(f"batched: {rec.warm_dense} warm calls took the dense kernel")
+    for i, g in enumerate(gaps):
+        if not g["keyframes_equal"]:
+            fail(f"batched: sequence {i} chose other keyframes than its solo run")
+        if g["first_two"] > BATCHED_FIRST_TOL or g["mean"] > BATCHED_MEAN_TOL:
+            fail(f"batched: sequence {i} is {g['first_two']:.3g} (first keyframes) and "
+                 f"{g['mean']:.3g} (mean abs_rel) off its solo run (bands "
+                 f"{BATCHED_FIRST_TOL}, {BATCHED_MEAN_TOL})")
+    if len(set(line["keyframes"])) < 2:
+        fail(f"batched: the schedules are not ragged: {line['keyframes']}")
+    # The largest call of each kernel on this path, held against its plain
+    # version (the main path's phase times the same shapes).
+    for key, (_, args) in rec.calls.items():
+        compare_call(knn, key, args, "batched", stats, stats_key=f"{key}_batched")
+
+    _, one = _batched_sequences(1)
+    b1, _ = run_batched(cfg, one)
+    print(json.dumps({"phase": "batched", "case": "B=1", **b1}), flush=True)
+    per_event, syncs, events = host_syncs_per_event(
+        cfg, tuple(x[:, :6] if x.ndim > 3 else x for x in _batched_sequences()[1]))
+    print(json.dumps({"phase": "batched", "case": "host syncs", "B": BATCHED_B,
+                      "events": events, "syncs": syncs, "syncs_per_event": per_event}),
+          flush=True)
+
+    fcfg = flagship_config(load_yaml(default_config_path()))
+    fcfg.DEMO.sequence_length = 12
+    fl, res = run_batched(fcfg, make_sequences(4, 12, 256, 320))
+    print(json.dumps({"phase": "batched", "case": "flagship B=4", **fl, "nvidia_smi": smi}),
+          flush=True)
+    bad = [r["mean_abs_rel"] for r in res["per_sequence"]
+           if not (_finite(r["mean_abs_rel"]) and 0.0 < r["mean_abs_rel"] < 0.5)]
+    if bad or any(fl["launches"].values()):
+        fail(f"batched flagship: abs_rel {fl['mean_abs_rel']}, launches {fl['launches']}")
+    return launches
+
+
+def batched_repeats(n, knn):
+    """``batched_vs_solo`` ``n`` times, measuring only: the widest gap of
+    each kind (the data of BATCHED_FIRST_TOL and BATCHED_MEAN_TOL)."""
+    runs = []
+    for _ in range(n):
+        runs.append(batched_vs_solo(knn)[1])
+    widest = {key: max(g[key] for gaps in runs for g in gaps) for key in ("first_two", "mean")}
+    print(json.dumps({"phase": "batched_repeats", "runs": n, "widest_gaps": widest,
+                      "keyframes_equal": all(g["keyframes_equal"] for gaps in runs
+                                             for g in gaps)}), flush=True)
+
+
+SHARDS, SHARD_ROWS = 4, 655_360  # the map's capacity: 4 shards of 655,360 rows
+SHARD_FRAME = 81_920  # one 320x256 frame's points
+# The sharded chamfer's value against the unsharded one: the frame->map
+# half takes the same rows; the map->frame half sums the shards' parts in
+# another order (float32 reassociation over millions of rows). Its frame
+# gradient is held by ``chamfer_grad_check``.
+SHARDED_RTOL = 1e-5
+
+
+def chamfer_grad_check(knn, frame, map_pts, n_map, g_s, g_r, picks_s, picks_r):
+    """The sharded chamfer's frame gradient ``g_s`` against the unsharded
+    ``g_r``. ``picks_*`` are each side's (frame->map, map->frame) nearest
+    rows. Where the two sides picked different rows, both picks must be
+    float32 ties (``fp32_distance_bound``), and ``g_r`` is moved by those
+    rows' terms (a far map row sits nearly as close to several frame
+    points, and the shard's search breaks such ties in another order than
+    the whole map's). Then each entry, a sum of one frame->map term and of
+    the map->frame terms of the rows whose nearest frame point it is,
+    accumulated in any order, errs on each side by at most ``(n + 3) u
+    sum|t|`` over that side's terms (``n`` terms, ``u = 2^-24``); the two
+    sides may differ by the sum of their bounds. Returns the check's
+    numbers."""
+    import torch
+
+    f, m = frame.double(), map_pts[:n_map].double()
+    nq = f.shape[0]
+    (ab_s, ba_s), (ab_r, ba_r) = ((a.long(), b[:n_map].long()) for a, b in (picks_s, picks_r))
+    ties, worst = 0, 0.0
+    g = g_r.double().clone()
+    for q, refs, s_, r_, scale in ((f, map_pts.double(), ab_s, ab_r, 2.0 / nq),
+                                   (m, f, ba_s, ba_r, 2.0 / n_map)):
+        diff = (s_ != r_).nonzero()[:, 0]
+        if not diff.numel():
+            continue
+        qd, a, b = q[diff], refs[s_[diff]], refs[r_[diff]]
+        gap = (((qd - a) ** 2).sum(1) - ((qd - b) ** 2).sum(1)).abs()
+        tol = torch.maximum(knn.fp32_distance_bound(qd, a), knn.fp32_distance_bound(qd, b))
+        ties += int(diff.numel())
+        worst = max(worst, float((gap / tol).max()))
+        if q is f:  # a frame point's own term: (2 / nq) (f - winner)
+            g[diff] += scale * (b - a)
+        else:  # a map row's term moves between two frame points
+            g.index_add_(0, s_[diff], scale * (a - qd))
+            g.index_add_(0, r_[diff], -scale * (b - qd))
+
+    def accumulation(ab, ba):
+        terms = torch.zeros_like(f).index_add_(0, ba, (2.0 / n_map) * (f[ba] - m).abs())
+        terms += (2.0 / nq) * (f - map_pts[ab].double()).abs()
+        n = torch.bincount(ba, minlength=nq).double()[:, None] + 1.0
+        return (n + 3.0) * 2.0 ** -24 * terms, n
+
+    # Each side's float32 sum errs by its own bound; a moved term leaves the
+    # unsharded sum's rounding behind.
+    bound_s, n = accumulation(ab_s, ba_s)
+    bound = bound_s + accumulation(ab_r, ba_r)[0]
+    err = (g_s.double() - g).abs()
+    ratio = err / bound
+    at = int(ratio.argmax())
+    r, c = at // 3, at % 3
+    return {"picks_differing": ties, "tie_gap_over_tol_max": worst,
+            "grad_max_abs_err": float((g_s - g_r).abs().max()),
+            "grad_max": float(g_r.abs().max()),
+            "grad_err_over_bound_max": float(ratio.max()),
+            "worst_entry": {"row": r, "terms": int(n[r, 0]), "err": float(err[r, c]),
+                            "bound": float(bound[r, c]), "sharded": float(g_s[r, c]),
+                            "unsharded": float(g_r[r, c]), "moved": float(g[r, c])}}
+
+
+def _shard_routes(knn, fn):
+    before = launch_counts(knn)
+    out = fn()
+    after = launch_counts(knn)
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def phase_sharded(knn, stats):
+    """The map-sharded exact search and chamfer on one card: SHARDS virtual
+    shards (``shard_search`` per shard, then ``combine``) against the
+    unsharded search, for a valid count ending mid-shard 3 and one ending
+    in shard 1 (shards 2-3 empty); the sharded chamfer's value and frame
+    gradient against ``losses/points.py``'s; then one world-size-1 NCCL
+    group through ``knn_map_sharded`` and the sharded chamfer."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from e2eslam_tpu_torch.losses.points import _masked_mean, chamfer_distance
+    from e2eslam_tpu_torch.losses.points_sharded import (
+        chamfer_distance_map_sharded,
+        map_to_frame_sum,
+    )
+    from e2eslam_tpu_torch.ops.knn_sharded import combine, knn_map_sharded, shard_search
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cap = SHARDS * SHARD_ROWS
+    map_pts = surface_points(cap, gen, 0.01).contiguous()
+    frame = view_points(SHARD_FRAME, gen)
+    launches = {k: 0 for k in KERNEL_INFO}
+
+    def virtual(nr, fr):
+        """The shards' searches and parts, one after another: (combined
+        search, chamfer value, per-shard lines)."""
+        parts, lines, mf = [], [], 0.0
+        for k in range(SHARDS):
+            ref = map_pts[k * SHARD_ROWS:(k + 1) * SHARD_ROWS]
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            part, route = _shard_routes(knn, lambda: shard_search(
+                fr.detach(), ref, k * SHARD_ROWS, nr, with_points=True))
+            b.record()
+            torch.cuda.synchronize()
+            n_local = min(max(nr - k * SHARD_ROWS, 0), SHARD_ROWS)
+            s_mf, route_mf = _shard_routes(knn, lambda: map_to_frame_sum(fr, ref, n_local,
+                                                                       SHARD_FRAME))
+            mf = mf + s_mf
+            for key in launches:
+                launches[key] += route[key] + route_mf[key]
+            parts.append(part)
+            lines.append({"shard": k, "nr_local": n_local, "search_ms": a.elapsed_time(b),
+                          "search_route": [key for key, v in route.items() if v],
+                          "chamfer_ba_route": [key for key, v in route_mf.items() if v]})
+        d2, idx, pts = combine(*(torch.stack(t) for t in zip(*parts)))
+        fm = _masked_mean(((fr - pts) ** 2).sum(dim=-1), None)
+        return (d2, idx, pts), fm + mf / max(float(nr), 1.0), lines
+
+    def shard_ba_picks(nr):
+        """Each shard's map->frame nearest frame points, in map row order
+        (the calls ``map_to_frame_sum`` makes)."""
+        picks = []
+        for k in range(SHARDS):
+            n_local = min(max(nr - k * SHARD_ROWS, 0), SHARD_ROWS)
+            ref = map_pts[k * SHARD_ROWS:(k + 1) * SHARD_ROWS]
+            picks.append(knn.knn(ref, frame, SHARD_FRAME, n_local)[1][:n_local])
+        return torch.cat(picks)
+
+    for case, nr in (("mid-shard 3", 2_500_000), ("shards 2-3 empty", SHARD_ROWS + 200_000)):
+        fr = frame.clone().requires_grad_(True)
+        with Recorder(knn) as rec:
+            (d2, idx, pts), value, lines = virtual(nr, fr)
+        value.backward()
+        g_s = fr.grad.clone()
+        d_ref, i_ref = knn.knn(frame, map_pts, nr)
+        fr_r = frame.clone().requires_grad_(True)
+        v_r = chamfer_distance(fr_r, map_pts, n_a=SHARD_FRAME, n_b=nr)
+        v_r.backward()
+        torch.cuda.synchronize()
+        q = frame.double()
+        r = map_pts.double()
+        tol = torch.maximum(knn.fp32_distance_bound(q, r[idx.long()]),
+                            knn.fp32_distance_bound(q, r[i_ref.long()]))
+        err = (d2.double() - d_ref.double()).abs()
+        diff = idx != i_ref
+        gap = (((q - r[idx.long()]) ** 2).sum(1) - ((q - r[i_ref.long()]) ** 2).sum(1)).abs()
+        grad = chamfer_grad_check(knn, frame, map_pts, nr, g_s, fr_r.grad,
+                                  (idx, shard_ba_picks(nr)),
+                                  (i_ref, knn.knn(map_pts, frame, SHARD_FRAME, nr)[1]))
+        line = {"phase": "sharded", "case": case, "nr": nr, "shards": lines,
+                "distances_bitwise_equal": bool(torch.equal(d2, d_ref)),
+                "max_abs_err": float(err.max()), "index_mismatches": int(diff.sum()),
+                "mismatch_gap_over_tol_max": float((gap[diff] / tol[diff]).max())
+                if bool(diff.any()) else 0.0,
+                "chamfer": float(value.detach()), "chamfer_unsharded": float(v_r.detach()),
+                "rtol": SHARDED_RTOL, **grad}
+        print(json.dumps(line), flush=True)
+        if bool((err > tol).any()):
+            fail(f"sharded ({case}): distances differ from the unsharded search")
+        if bool((gap[diff] > tol[diff]).any()):
+            fail(f"sharded ({case}): indices differ where the nearest neighbour is unique")
+        v_s, v_u = float(value.detach()), float(v_r.detach())
+        if abs(v_s - v_u) > SHARDED_RTOL * abs(v_u):
+            fail(f"sharded ({case}): chamfer {v_s} vs unsharded {v_u}")
+        if grad["tie_gap_over_tol_max"] > 1.0 or grad["grad_err_over_bound_max"] > 1.0:
+            fail(f"sharded ({case}): frame gradient {grad}")
+        if case.startswith("mid"):
+            # The shard-sized cold search (dense kernel): held and timed.
+            compare_call(knn, "dense", rec.calls["dense"][1], "sharded shard", stats,
+                         timing=True, stats_key="dense_sharded")
+
+    # One NCCL group of one rank: the distributed entry points themselves.
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            before = launch_counts(knn)
+            d2, idx = knn_map_sharded(None, frame, map_pts, 2_500_000)
+            fr = frame.clone().requires_grad_(True)
+            v = chamfer_distance_map_sharded(None, fr, map_pts, n_frame=SHARD_FRAME,
+                                             n_map=2_500_000)
+            v.backward()
+            after = launch_counts(knn)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    d_ref, i_ref = knn.knn(frame, map_pts, 2_500_000)
+    fr_r = frame.clone().requires_grad_(True)
+    v_r = chamfer_distance(fr_r, map_pts, n_a=SHARD_FRAME, n_b=2_500_000)
+    v_r.backward()
+    # One shard: the same calls as the unsharded loss, the same picks.
+    i_ba = knn.knn(map_pts, frame, SHARD_FRAME, 2_500_000)[1]
+    nccl = {"phase": "sharded", "case": "nccl world 1",
+            "distances_bitwise_equal": bool(torch.equal(d2, d_ref)),
+            "indices_equal": bool(torch.equal(idx, i_ref)),
+            "chamfer": float(v.detach()), "chamfer_unsharded": float(v_r.detach()),
+            **chamfer_grad_check(knn, frame, map_pts, 2_500_000, fr.grad, fr_r.grad,
+                                 (i_ref, i_ba), (i_ref, i_ba)),
+            "launches": {k: after[k] - before[k] for k in after}}
+    print(json.dumps(nccl), flush=True)
+    if (not nccl["distances_bitwise_equal"]
+            or abs(nccl["chamfer"] - nccl["chamfer_unsharded"])
+            > SHARDED_RTOL * abs(nccl["chamfer_unsharded"])
+            or nccl["grad_err_over_bound_max"] > 1.0):
+        fail(f"sharded (nccl world 1): {nccl}")
+    for key in launches:
+        launches[key] += nccl["launches"][key]
+    return launches
+
+
 OFFLINE_REPEATABLE = {"scale": phase_scale, "scaling_tools": phase_scaling_tools}
 
 
@@ -2003,7 +2469,8 @@ def small_repeats(n, names, knn=None, smi=None):
 
 def run_phases(knn, names, smi):
     """Only the named phases (``icl``, ``compact``, ``train_depth``, ``oft``,
-    ``scale``, ``scaling_tools``, ``recover``, ``demo``, ``small:CONFIG``),
+    ``scale``, ``scaling_tools``, ``recover``, ``demo``, ``batched``,
+    ``sharded``, ``small:CONFIG``),
     each checked as in the full run; no kernels line and no result line."""
     stats = {}
     offline = {"train_depth": lambda: phase_train_depth(knn, stats, smi),
@@ -2013,7 +2480,11 @@ def run_phases(knn, names, smi):
                "recover": lambda: phase_recover(knn, stats, smi),
                "demo": lambda: phase_demo(knn, smi)}
     for name in names:
-        if name == "icl":
+        if name == "batched":
+            phase_batched(knn, stats, smi)
+        elif name == "sharded":
+            phase_sharded(knn, stats)
+        elif name == "icl":
             phase_icl(knn, stats, smi)
         elif name == "compact":
             phase_compact(knn, stats, smi, None)
@@ -2039,9 +2510,11 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
-    repeats = only = None
+    repeats = only = batched_n = None
     if argv and argv[0] == "--small-repeats":
         repeats, names = int(argv[1]), argv[2:] or list(SMALL_CONFIGS)
+    elif argv and argv[0] == "--batched-repeats":
+        batched_n = int(argv[1])
     elif argv and argv[0] == "--phases":
         only = argv[1:]
 
@@ -2072,6 +2545,9 @@ def main(argv) -> int:
     try:
         if repeats is not None:
             small_repeats(repeats, names, knn, smi)
+            return 0
+        if batched_n is not None:
+            batched_repeats(batched_n, knn)
             return 0
         if only is not None:
             run_phases(knn, only, smi)
@@ -2112,7 +2588,10 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
     phase_scaling_tools(knn, smi)
     recover_launches = phase_recover(knn, stats, smi)
     phase_demo(knn, smi)
-    # 12. small input, card vs CPU
+    # 12. several sequences at once on the card; the map-sharded search
+    batched_launches = phase_batched(knn, stats, smi)
+    sharded_launches = phase_sharded(knn, stats)
+    # 13. small input, card vs CPU
     for config in SMALL_CONFIGS:
         phase_small(config)
 
@@ -2120,6 +2599,7 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
     rows = [(key, key, "main path", launches[key]) for key in KERNEL_INFO]
     rows.append(("resident", "resident_ba", "chamfer b->a", stats["resident_ba"]["launches"]))
     rows.append(("dense", "dense_recover", "recover cold", recover_launches["dense"]))
+    rows.append(("dense", "dense_sharded", "sharded shard", sharded_launches["dense"]))
     for key, st_key, call, n in rows:
         # Times come from the largest call of the kernel on its path; a
         # kernel the main path did not launch keeps its main-path-like
@@ -2140,6 +2620,8 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
                         "train_depth_launches": train_depth_launches[key],
                         "oft_launches": oft_launches[key],
                         "recover_launches": recover_launches[key],
+                        "batched_launches": batched_launches[key],
+                        "sharded_launches": sharded_launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                         "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),

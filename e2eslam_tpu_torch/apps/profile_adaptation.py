@@ -2,9 +2,9 @@
 
     python -m e2eslam_tpu_torch.apps.profile_adaptation \\
         [--config_path configs/config.yaml]
-        [--workload config|chamfer|flagship|gradicp|compact|icl]
+        [--workload config|chamfer|flagship|gradicp|compact|icl|batched]
         [--set SECTION.key=value ...] [--runs 1] [--deterministic]
-        [--profile_frames 12] [--out DIR]
+        [--profile_frames 12] [--n_seq 1 2 4] [--out DIR]
 
 Three runs of the config's main path, each on a fresh runner with the same
 seeded weights, after the kernels are built:
@@ -34,6 +34,17 @@ says) on the repository's 10-frame sequence, its network loaded from a
 run; with ``--out DIR`` also writes them to ``DIR/profile.json``.
 ``--set`` overrides a setting after the workload's (a YAML value, e.g.
 ``--set SETTINGS.compute_dtype=float32``).
+
+``--workload batched`` is the port's copy of tools/bench_batched.py: B
+sequences adapting at once on the card (``parallel/adaptation.py``, the
+depth networks of all B in one vmapped call), the flagship settings
+(``flagship_config``), B distinct synthetic sequences with staggered
+starts (``make_sequences``: ragged schedules). For each B of ``--n_seq``:
+a warm-up over each sequence's first 4 frames, then ``--runs`` timed runs,
+each printing the aggregate steps/s (every sequence's refinement steps
+over the synchronised wall clock of the run), each sequence's keyframes,
+mean abs_rel and map points, and the card's name and power limit. No
+profiled run.
 """
 
 from __future__ import annotations
@@ -46,12 +57,16 @@ import tempfile
 
 import torch
 
+import numpy as np
+
 from e2eslam_tpu_torch.config import apply_overrides, default_config_path, load_yaml
+from e2eslam_tpu_torch.data.synthetic import SyntheticDataset
 from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
 from e2eslam_tpu_torch.models.convert import save_reference_checkpoint
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
 from e2eslam_tpu_torch.ops import cuda_build
 from e2eslam_tpu_torch.ops import knn as knn_ops
+from e2eslam_tpu_torch.parallel.adaptation import ParallelAdaptation
 
 FAMILIES = (  # (family, substrings of CUDA kernel names), first match wins
     ("knn kernels", ("knn_",)),
@@ -185,7 +200,64 @@ def seeded_weights_dir(cfg, dirpath, seed=0):
 
 WORKLOADS = {"config": lambda cfg: cfg, "chamfer": chamfer_config,
              "flagship": flagship_config, "gradicp": gradicp_config,
-             "compact": compact_config, "icl": lambda cfg: icl_config()}
+             "compact": compact_config, "icl": lambda cfg: icl_config(),
+             "batched": flagship_config}
+
+
+def make_sequences(b, seq_len, h, w, dilation=2):
+    """``b`` distinct synthetic sequences of ``seq_len`` frames, sequence
+    ``i`` starting at frame ``7 i`` (tools/bench_batched.py:41-59): their
+    keyframe schedules differ. Returns (colors [b, L, h, w, 3] in [0, 1],
+    depths [b, L, h, w, 1], intrinsics [b, 4, 4], poses [b, L, 4, 4]) as
+    numpy arrays."""
+    colors, depths, intr, poses = [], [], [], []
+    for i in range(b):
+        ds = SyntheticDataset(seqlen=seq_len, height=h, width=w, dilation=dilation,
+                              start=7 * i, total_frames=3 * seq_len + 7 * b + 4)
+        c, d, K, p, _ = ds[0]
+        colors.append(c.astype(np.float32) / 255.0)
+        depths.append(d)
+        intr.append(K)
+        poses.append(p)
+    return np.stack(colors), np.stack(depths), np.stack(intr), np.stack(poses)
+
+
+def run_batched(cfg, sequences, weights=None):
+    """One ``ParallelAdaptation`` run of ``sequences`` on the card with the
+    seeded network (or ``weights``), launches counted. Returns (the run's
+    line, the runner's result)."""
+    b, L, h, w = sequences[0].shape[:4]
+    for k in knn_ops.KERNELS:
+        k.launches = 0
+    model = make_depth_model(cfg)
+    par = ParallelAdaptation(cfg, model, map_capacity=L * h * w, n_seq=b)
+    out = par.run(par.init_state(weights), sequences,
+                  threshold=float(cfg.DEMO.frame_threshold))
+    seqs = out["per_sequence"]
+    return {"B": b, "frames": L, "events": out["num_events"],
+            "refine_steps": out["refine_steps"], "elapsed_s": out["elapsed_s"],
+            "aggregate_steps_per_sec": out["steps_per_sec"],
+            "keyframes": [r["num_keyframes"] for r in seqs],
+            "mean_abs_rel": [r["mean_abs_rel"] for r in seqs],
+            "map_points": [r["map_points"] for r in seqs],
+            "launches": {k.__name__: k.launches for k in knn_ops.KERNELS}}, out
+
+
+def _batched(args, out, smi):
+    cfg = _config(args.config_path, "batched", None, args.set)
+    h, w, L = int(cfg.DATA.height), int(cfg.DATA.width), int(cfg.DEMO.sequence_length)
+    out["batched"] = []
+    for b in args.n_seq:
+        seqs = make_sequences(b, L, h, w)
+        run_batched(cfg, tuple(x[:, :4] if x.ndim > 3 else x for x in seqs))  # warm-up
+        for _ in range(args.runs):
+            torch.cuda.reset_peak_memory_stats()
+            line, _ = run_batched(cfg, seqs)
+            line.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        nvidia_smi=smi)
+            out["batched"].append(line)
+            print(json.dumps({"batched": line}), flush=True)
+    return out
 
 
 def _config(path, workload="config", frames=None, overrides=(), weights_dir=None):
@@ -226,6 +298,7 @@ def main(argv=None):
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--profile_frames", type=int, default=12)
+    p.add_argument("--n_seq", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -241,6 +314,13 @@ def main(argv=None):
            "workload": args.workload, "set": args.set, "deterministic": args.deterministic,
            "build_s": cuda_build.build()}
     print(json.dumps(out), flush=True)
+    if args.workload == "batched":
+        out = _batched(args, out, smi)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "profile.json"), "w") as f:
+                json.dump(out, f, indent=1)
+        return out
 
     tmp = tempfile.TemporaryDirectory()
     weights = None

@@ -70,3 +70,22 @@ def load_batch(dataset, indices: Sequence[int]):
         poses.astype(np.float32),
         transforms.astype(np.float32),
     )
+
+
+class ArrayDataset:
+    """One window: a whole sequence held in memory (colors ``[L, H, W, 3]``
+    in [0, 1], depths ``[L, H, W, 1]``, intrinsics ``[4, 4]``, poses ``[L,
+    4, 4]``), in the datasets' item layout (colors in [0, 255]), for a
+    runner's ``dataset`` argument."""
+
+    def __init__(self, colors01, depths, intrinsics, poses):
+        poses = np.asarray(poses, np.float32)
+        self._item = (np.asarray(colors01, np.float32) * 255.0, np.asarray(depths, np.float32),
+                      np.asarray(intrinsics, np.float32), poses,
+                      np.broadcast_to(np.eye(4, dtype=np.float32), poses.shape).copy())
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, i):
+        return self._item

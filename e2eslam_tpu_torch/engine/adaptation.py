@@ -70,7 +70,115 @@ def keyframe_schedule(poses: np.ndarray, threshold: float):
     return events
 
 
-class OnlineAdaptation:
+class KeyframeViews:
+    """One sequence's map index, keyframe by keyframe, and its periodic
+    compaction: the brute KNN's sorted, bucketed view with the cached
+    permutation between re-sorts (``LOSS.knn_sort_period``), or the
+    engine's own index. ``OnlineAdaptation`` is one; the multi-sequence
+    runner (``parallel/adaptation.py``) keeps one per sequence. Needs
+    ``config``, ``engine`` and ``capacity``."""
+
+    def _views_init(self):
+        L = self.config.LOSS
+        # The brute KNN's sorted, bucketed map view; the other associations
+        # have no sort, no bucket and no seeds (the voxel hash is rebuilt
+        # over the whole map each keyframe).
+        self._bucketed_sort = (bool(L.get("knn_spatial_sort", True))
+                               and bool(L.get("knn_bucket", True))
+                               and self.engine.point_losses and self.engine.knn_impl == "brute")
+        self._views_start()
+
+    def _views_start(self):
+        """Forget the previous run's views."""
+        self._sort_cache = None  # {perm, inv, bucket, age, known}
+        self._bucket_rows = 0
+        self.regathers = 0
+        self.sorted_at: List[int] = []
+        self.compactions: List[Dict] = []
+
+    def map_index(self, k: int, global_map):
+        """Keyframe ``k``'s index over ``global_map``. Returns (index,
+        whether the sorted view's permutation is the previous keyframe's,
+        so that its final KNN indices may seed this one)."""
+        engine = self.engine
+        if not self._bucketed_sort:
+            return engine.build_map_index(global_map), False
+        period = int(self.config.LOSS.get("knn_sort_period", 1) or 1)
+        self._bucket_rows = self._bucket(global_map.count, k == 0, self._bucket_rows)
+        bucket = self._bucket_rows
+        if self._sort_cache_stale(period, bucket, global_map.count):
+            index = engine.build_map_index(global_map, bucket)
+            self.sorted_at.append(k)
+            if period > 1 and isinstance(index, SortedMap):
+                self._sort_cache = {"perm": index.perm, "inv": index.inv_perm,
+                                    "bucket": bucket, "age": 0, "known": global_map.count}
+            return index, False
+        # Between re-sorts (LOSS.knn_sort_period): the cached permutation
+        # over the current points, one gather.
+        sc = self._sort_cache
+        index = regather_sorted(global_map.points[: sc["bucket"]].detach(), sc["perm"],
+                                sc["inv"])
+        sc["age"] += 1
+        sc["known"] = max(sc["known"], global_map.count)
+        self.regathers += 1
+        return index, True
+
+    def maybe_compact(self, k: int, frame: int, global_map, est_pose, K):
+        """Periodic compaction after every ``MODEL.compact_period``-th fused
+        keyframe ``k``, from its camera (the JAX whole-sequence program,
+        refine.py:1351-1358, and host loop, adaptation.py:402), over the
+        1M-row slice that holds the valid rows (its bucket ladder,
+        :1297-1327). It moves rows: the cached permutation and the seeds
+        (sorted positions) no longer describe the map. Returns (map,
+        whether it ran)."""
+        period = int(self.config.MODEL.get("compact_period", 0) or 0)
+        if not period or (k + 1) % period:
+            return global_map, False
+        before = global_map.count
+        global_map = self.engine.compact_now(global_map, est_pose, K,
+                                             bucket=_quantized(before, self.capacity))
+        self._sort_cache = None
+        self.compactions.append({"keyframe": k, "frame": frame, "before": before,
+                                 "after": global_map.count})
+        return global_map, True
+
+    def _bucket(self, count: int, first: bool, last: int) -> int:
+        """Rows of the map view the keyframe's KNN and fusion run on: an
+        upper bound on the post-fusion count, rounded up to
+        ``LOSS.knn_bucket_quantum`` (1<<20), never shrinking within a run.
+        The bound matches the JAX host loop with a ready count fetch: a
+        keyframe appends at most H*W rows (the first, which also fuses its
+        prev frame, 2*H*W)."""
+        cfg = self.config
+        hw = int(cfg.DATA.height) * int(cfg.DATA.width)
+        ub = 3 * hw if first else count + 2 * hw
+        q = int(cfg.LOSS.get("knn_bucket_quantum", 0) or (1 << 20))
+        return max(min(-(-ub // q) * q, self.capacity), last)
+
+    def _sort_cache_stale(self, period: int, bucket: int, known: int) -> bool:
+        """Whether the cached Morton permutation must be rebuilt
+        (e2eslam_tpu/engine/adaptation.py:110-129): the cache is off
+        (``period <= 1``) or empty, the bucket changed (the permutation
+        covers the old slice), it aged out, or the map count decreased since
+        the sort (the regathered view's valid prefix needs counts that never
+        shrink). ``known`` 0 means no count is known yet."""
+        sc = self._sort_cache
+        if period <= 1 or sc is None:
+            return True
+        shrunk = 0 < known < sc.get("known", 0)
+        return shrunk or bucket != sc["bucket"] or sc["age"] >= period - 1
+
+
+def window_frames(kf_hist: List[int], frame: int, F: int) -> List[int]:
+    """The refinement window of keyframe ``frame``: the last ``F``
+    keyframes ending at it, oldest first; slots older than the history
+    ``kf_hist`` (processed keyframes, frame 0 the first prev) repeat the
+    oldest keyframe."""
+    hist = (kf_hist + [frame])[-F:]
+    return [hist[0]] * (F - len(hist)) + hist
+
+
+class OnlineAdaptation(KeyframeViews):
     """Config-driven online-adaptation runner.
 
     ``device``: ``"cpu"`` runs on the CPU; otherwise CUDA (see
@@ -114,27 +222,7 @@ class OnlineAdaptation:
         self.capacity = int(M.get("map_capacity") or seq_len * H * W)
         self.engine = RefinementEngine(config, model, map_capacity=self.capacity,
                                        device=self.device)
-        L = config.LOSS
-        # The brute KNN's sorted, bucketed map view; the other associations
-        # have no sort, no bucket and no seeds (the voxel hash is rebuilt
-        # over the whole map each keyframe).
-        self._bucketed_sort = (bool(L.get("knn_spatial_sort", True))
-                               and bool(L.get("knn_bucket", True))
-                               and self.engine.point_losses and self.engine.knn_impl == "brute")
-        self._sort_cache = None  # {perm, inv, bucket, age, known}
-
-    def _bucket(self, count: int, first: bool, last: int) -> int:
-        """Rows of the map view the keyframe's KNN and fusion run on: an
-        upper bound on the post-fusion count, rounded up to
-        ``LOSS.knn_bucket_quantum`` (1<<20), never shrinking within a run.
-        The bound matches the JAX host loop with a ready count fetch: a
-        keyframe appends at most H*W rows (the first, which also fuses its
-        prev frame, 2*H*W)."""
-        cfg = self.config
-        hw = int(cfg.DATA.height) * int(cfg.DATA.width)
-        ub = 3 * hw if first else count + 2 * hw
-        q = int(cfg.LOSS.get("knn_bucket_quantum", 0) or (1 << 20))
-        return max(min(-(-ub // q) * q, self.capacity), last)
+        self._views_init()
 
     def run(self, *, verbose: Optional[bool] = None) -> Dict:
         cfg = self.config
@@ -153,46 +241,18 @@ class OnlineAdaptation:
         keyframes: List[int] = []
         per_pair: List[Dict] = []
         est_poses = []
-        bucket = 0
         kf_hist = [0]  # processed keyframes (frame 0: the first prev)
-        self._sort_cache = None
-        period = int(cfg.LOSS.get("knn_sort_period", 1) or 1)
+        self._views_start()
         last_kc = None
-        regathers = 0
-        sorted_at, seeded_at, compactions = [], [], []
-        compact_period = int(cfg.MODEL.get("compact_period", 0) or 0)
+        seeded_at = []
         self._sync()
         t_start = time.perf_counter()
         for k, (prev, frame) in enumerate(schedule):
-            # The last F keyframes ending at `frame`, oldest first; slots
-            # older than the history repeat the oldest keyframe.
-            hist = (kf_hist + [frame])[-self.F_ref:]
-            window = [hist[0]] * (self.F_ref - len(hist)) + hist
+            window = window_frames(kf_hist, frame, self.F_ref)
             pair = self._batch(colors, gt_depths, K, poses, window)
             fuse_batch = None if window == [prev, frame] else self._batch(
                 colors, gt_depths, K, poses, [prev, frame])
-            perm_stable = False
-            if self._bucketed_sort:
-                bucket = self._bucket(global_map.count, k == 0, bucket)
-                if self._sort_cache_stale(period, bucket, global_map.count):
-                    map_index = engine.build_map_index(global_map, bucket)
-                    sorted_at.append(k)
-                    if period > 1 and isinstance(map_index, SortedMap):
-                        self._sort_cache = {"perm": map_index.perm, "inv": map_index.inv_perm,
-                                            "bucket": bucket, "age": 0,
-                                            "known": global_map.count}
-                else:
-                    # Between re-sorts (LOSS.knn_sort_period): the cached
-                    # permutation over the current points, one gather.
-                    sc = self._sort_cache
-                    map_index = regather_sorted(global_map.points[: sc["bucket"]].detach(),
-                                                sc["perm"], sc["inv"])
-                    sc["age"] += 1
-                    sc["known"] = max(sc["known"], global_map.count)
-                    perm_stable = True
-                    regathers += 1
-            else:
-                map_index = engine.build_map_index(global_map)
+            map_index, perm_stable = self.map_index(k, global_map)
             # Cross-keyframe seeds: the previous keyframe's final indices are
             # positions in the sorted view, valid while its permutation is.
             seed = last_kc if perm_stable else None
@@ -201,20 +261,9 @@ class OnlineAdaptation:
             global_map, steps, est_pose, last_kc = engine.process_pair(
                 pair, global_map, map_index, fuse_prev=k == 0, fuse_batch=fuse_batch,
                 knn_init0=seed)
-            if compact_period and (k + 1) % compact_period == 0:
-                # Periodic compaction after every compact_period-th fused
-                # keyframe, from its camera (the JAX whole-sequence program,
-                # refine.py:1351-1358, and host loop, adaptation.py:402), over
-                # the 1M-row slice that holds the valid rows (its bucket
-                # ladder, :1297-1327). It moves rows: the cached permutation
-                # and the seeds (sorted positions) no longer describe the map.
-                before = global_map.count
-                global_map = engine.compact_now(global_map, est_pose, K,
-                                                bucket=_quantized(before, self.capacity))
-                self._sort_cache = None
+            global_map, compacted = self.maybe_compact(k, frame, global_map, est_pose, K)
+            if compacted:
                 last_kc = None
-                compactions.append({"keyframe": k, "frame": frame, "before": before,
-                                    "after": global_map.count})
             if verbose:
                 for i, m in enumerate(steps):
                     print(f"frame {frame} refine_step {i} "
@@ -265,11 +314,11 @@ class OnlineAdaptation:
             "intrinsics": intrinsics[0],
             "ate": ate,
             "rpe": rpe,
-            "regathers": regathers,
+            "regathers": self.regathers,
             "seeded_keyframes": len(seeded_at),
-            "sorted_at": sorted_at,
+            "sorted_at": self.sorted_at,
             "seeded_at": seeded_at,
-            "compactions": compactions,
+            "compactions": self.compactions,
         }
         if compacted is not None:
             result["map_points_compacted"] = compacted
@@ -278,19 +327,6 @@ class OnlineAdaptation:
                   f"map points {result['map_points']} ate {ate:.5f} rpe {rpe:.5f} "
                   f"refine steps/sec {result['steps_per_sec']:.2f}")
         return result
-
-    def _sort_cache_stale(self, period: int, bucket: int, known: int) -> bool:
-        """Whether the cached Morton permutation must be rebuilt
-        (e2eslam_tpu/engine/adaptation.py:110-129): the cache is off
-        (``period <= 1``) or empty, the bucket changed (the permutation
-        covers the old slice), it aged out, or the map count decreased since
-        the sort (the regathered view's valid prefix needs counts that never
-        shrink). ``known`` 0 means no count is known yet."""
-        sc = self._sort_cache
-        if period <= 1 or sc is None:
-            return True
-        shrunk = 0 < known < sc.get("known", 0)
-        return shrunk or bucket != sc["bucket"] or sc["age"] >= period - 1
 
     @staticmethod
     def _batch(colors, gt_depths, K, poses, frames) -> PairBatch:

@@ -260,17 +260,27 @@ class RefinementEngine:
     def forward_depths(self, colors: Tensor, taps=None) -> Tuple[Tensor, Tensor]:
         """Batched depth forward of all frames. Returns (disp, depth).
         ``taps``: the decoder's zero taps (``models/decoders.py``)."""
+        return self.depths_from_net(self.model(self.net_input(colors), taps=taps),
+                                    colors.shape[0])
+
+    def net_input(self, colors: Tensor) -> Tensor:
+        """The network's batch for the frames ``colors`` ``[F, H, W, 3]``:
+        with ``ABLATION.dual_disparity`` the frames and their horizontal
+        flips, one doubled batch (reference train_depth.py:224-237)."""
+        if self.config.ABLATION.get("dual_disparity", False):
+            return torch.cat([colors, colors.flip(2)], dim=0)
+        return colors
+
+    def depths_from_net(self, out: Tensor, F: int) -> Tuple[Tensor, Tensor]:
+        """(disp, depth) of ``F`` frames from the network's output on
+        ``net_input``'s batch; the dual disparities are blended
+        (train_depth.py:333-338)."""
         cfg = self.config
         # The network's disparity leaves in its compute dtype; the losses and
         # geometry run in float32 (e2eslam_tpu/engine/refine.py:237, :245).
-        if cfg.ABLATION.get("dual_disparity", False):
-            # The image and its horizontal flip in one doubled batch, blended
-            # (reference train_depth.py:224-237, :333-338).
-            F = colors.shape[0]
-            d = self.model(torch.cat([colors, colors.flip(2)], dim=0)).float()
-            disp = _merge_dual_disparity(d[:F], d[F:].flip(2))
-        else:
-            disp = self.model(colors, taps=taps).float()
+        out = out.float()
+        disp = (_merge_dual_disparity(out[:F], out[F:].flip(2))
+                if cfg.ABLATION.get("dual_disparity", False) else out)
         if cfg.MODEL.depth_network == "indoor":
             return disp, indoor_disp_to_depth(disp)
         return disp, disp_to_depth(disp, float(cfg.DATA.min_depth), float(cfg.DATA.max_depth))
@@ -650,14 +660,8 @@ class RefinementEngine:
                     for k, shape in decoder_tap_shapes(F, H, W).items()}
         self.optimizer.zero_grad(set_to_none=True)
         disp, depth = self.forward_depths(pair.colors, taps=taps)
-        depth = self.apply_scaling(depth, pair.gt_depths, pair.intrinsics)
-        if step == 0:
-            self.initial_depths = depth.detach()
-        elif self.initial_depths is None:
-            self.initial_depths = torch.zeros_like(depth)  # the JAX state's zeros
-        outputs = self.view_synthesis(pair, depth)
-        loss, aux = self.assemble_losses(pair, disp, depth, outputs, map_state,
-                                         self.initial_depths, map_index, knn_init, thread_knn)
+        loss, aux, depth, outputs = self.step_loss(pair, disp, depth, map_state, map_index,
+                                                   knn_init, thread_knn, step)
         loss.backward()
         for p in self._zero_grads:
             if p.grad is None:
@@ -671,11 +675,7 @@ class RefinementEngine:
         self.optimizer.step()
         self.scheduler.step()
         knn_cache = aux.pop("_knn_idx", None)
-        with torch.no_grad():
-            metrics = depth_metrics(self.config.DATA.name, pair.gt_depths[TARGET],
-                                    depth[TARGET])
-        metrics["total_loss"] = loss.detach()
-        metrics.update({k: v.detach() for k, v in aux.items()})
+        metrics = self.step_metrics(pair, depth, loss, aux)
         if obs_images:
             metrics["debug_images"] = self._debug_images(pair, depth, outputs)
         if obs_grads:
@@ -684,6 +684,23 @@ class RefinementEngine:
         if taps is not None:
             metrics["grad_images"] = {k: t.grad.float() for k, t in taps.items()}
         return metrics, knn_cache, grads if return_grads else None
+
+    def step_loss(self, pair: PairBatch, disp: Tensor, depth: Tensor,
+                  map_state: Optional[MapState], map_index=None, knn_init=None,
+                  thread_knn: bool = False, step: int = 0):
+        """The PFT step's loss from the network's (disp, unscaled depth) of
+        the window ``pair``: scaling, the depth regularizer's reference (the
+        step-0 depth), view synthesis and the loss family. Returns (loss,
+        aux, scaled depth, view-synthesis outputs)."""
+        depth = self.apply_scaling(depth, pair.gt_depths, pair.intrinsics)
+        if step == 0:
+            self.initial_depths = depth.detach()
+        elif self.initial_depths is None:
+            self.initial_depths = torch.zeros_like(depth)  # the JAX state's zeros
+        outputs = self.view_synthesis(pair, depth)
+        loss, aux = self.assemble_losses(pair, disp, depth, outputs, map_state,
+                                         self.initial_depths, map_index, knn_init, thread_knn)
+        return loss, aux, depth, outputs
 
     def _debug_images(self, pair: PairBatch, depth: Tensor, outputs: Dict) -> Dict[str, Tensor]:
         """``DEBUG.plot``'s images (refine.py:942-960, reference
@@ -738,7 +755,7 @@ class RefinementEngine:
         oft.optimizer.step()
         oft.scheduler.step()
         aux.pop("_knn_idx", None)
-        return self._mode_metrics(pair, depth, loss, aux)
+        return self.step_metrics(pair, depth, loss, aux)
 
     def oft_window(self, pair: PairBatch, map_state: Optional[MapState]):
         """A window of output fine-tuning (refine.py:1451-1486): one frozen
@@ -783,9 +800,11 @@ class RefinementEngine:
         sc.optimizer.step()
         sc.scheduler.step()
         aux.pop("_knn_idx", None)
-        return self._mode_metrics(pair, depth, loss, aux)
+        return self.step_metrics(pair, depth, loss, aux)
 
-    def _mode_metrics(self, pair: PairBatch, depth: Tensor, loss: Tensor, aux: Dict) -> Dict:
+    def step_metrics(self, pair: PairBatch, depth: Tensor, loss: Tensor, aux: Dict) -> Dict:
+        """The depth metrics of the window's target frame, the loss and its
+        terms, detached."""
         with torch.no_grad():
             metrics = depth_metrics(self.config.DATA.name, pair.gt_depths[TARGET],
                                     depth[TARGET].detach())
@@ -799,6 +818,12 @@ class RefinementEngine:
         ``create_refined_pointcloud``, online_adaption.py:329-366). Returns
         (map, estimated live pose)."""
         _, depth = self.forward_depths(pair.colors)
+        return self.fuse_depth(pair, depth, map_state, fuse_prev=fuse_prev)
+
+    @torch.no_grad()
+    def fuse_depth(self, pair: PairBatch, depth: Tensor, map_state: MapState, *,
+                   fuse_prev: bool):
+        """``fuse_pair`` from the network's unscaled depth of ``pair``."""
         depth = self.apply_scaling(depth, pair.gt_depths, pair.intrinsics)
         prev = build_frame(pair.colors[0], depth[0], pair.intrinsics, pair.poses[0])
         if fuse_prev:
@@ -864,6 +889,15 @@ class RefinementEngine:
             out = dataclasses.replace(out, data=full)
         return out
 
+    @staticmethod
+    def map_view(map_state: MapState, map_index=None) -> MapState:
+        """The map the keyframe's steps and fusion run on: with a bucketed
+        sorted view (``map_index`` shorter than the buffer) the buffer's
+        first rows, which hold every valid row; else the map itself."""
+        if isinstance(map_index, SortedMap) and map_index.points.shape[0] < map_state.data.shape[0]:
+            return dataclasses.replace(map_state, data=map_state.data[: map_index.points.shape[0]])
+        return map_state
+
     def process_pair(self, pair: PairBatch, map_state: MapState, map_index=None, *,
                      fuse_prev: bool, fuse_batch: Optional[PairBatch] = None,
                      knn_init0=None) -> Tuple[MapState, List[Dict], Tensor, Optional[Dict]]:
@@ -876,9 +910,7 @@ class RefinementEngine:
         cache) seeds step 0 when the sorted view's permutation is unchanged.
         Returns (map, per-step metrics, estimated pose, final KNN cache).
         """
-        view = map_state
-        if isinstance(map_index, SortedMap) and map_index.points.shape[0] < map_state.data.shape[0]:
-            view = dataclasses.replace(map_state, data=map_state.data[: map_index.points.shape[0]])
+        view = self.map_view(map_state, map_index)
         steps = []
         kc = knn_init0 if self.warm else None
         for i in range(self.refinement_steps):

@@ -92,18 +92,29 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (str(key),), value
 
 
-def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+def from_jax_params(params: Mapping, batch_stats: Mapping, *,
+                    stacked: bool = False) -> Dict[str, torch.Tensor]:
     """Flax ``params``/``batch_stats`` trees -> a ``state_dict`` of the port's
     ``DispResNetIndoor`` or ``MonodepthNet`` (without the
-    ``num_batches_tracked`` counters)."""
+    ``num_batches_tracked`` counters). ``stacked``: every leaf carries a
+    leading ``[N]`` axis (the JAX ``ParallelAdaptation`` state, one network
+    per sequence), kept in front of each tensor."""
     out: Dict[str, torch.Tensor] = {}
+    lead = 1 if stacked else 0
     for collection, tree in (("params", params), ("batch_stats", batch_stats or {})):
         for path, value in _flatten(tree):
             value = np.asarray(value, np.float32)
             if path[-1] == "kernel":
-                value = value.transpose(3, 2, 0, 1)
+                value = value.transpose(*range(lead), lead + 3, lead + 2, lead, lead + 1)
             out[torch_key(path, collection)] = torch.from_numpy(np.array(value))
     return out
+
+
+def from_jax_params_stacked(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """``from_jax_params`` of stacked trees: ``{key: [N, ...]}``, the
+    per-sequence networks of the multi-sequence runner
+    (``parallel/mesh.py::ParallelRefinement.init_state``)."""
+    return from_jax_params(params, batch_stats, stacked=True)
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping,

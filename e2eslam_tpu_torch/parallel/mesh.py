@@ -1,0 +1,301 @@
+"""Several sequences adapting in lockstep: the mesh and one refinement step.
+
+The port of ``e2eslam_tpu/parallel/mesh.py``. Online adaptation of one
+sequence never talks to another, so sequences scale along a ``data`` axis:
+
+  * on one device (a mesh of size 1, the card itself) ``n_seq`` sequences
+    batch. Their depth networks run as ONE call: ``torch.func.vmap`` of
+    ``torch.func.functional_call`` over parameters and buffers stacked on a
+    leading ``[n_seq]`` axis, so each convolution sees every sequence's
+    images at once (a grouped convolution). Everything after the network
+    runs per sequence, in a loop: scaling, view synthesis, the loss family
+    with its KNN calls, fusion. The per-sequence losses are summed before
+    one backward, which gives each sequence exactly its own gradient, and
+    one optimizer steps the stacked tensors (element-wise, so N separate
+    optimizers in one).
+  * a ``data`` axis of ``D > 1`` devices is one process per device
+    (``torch.distributed``), each holding ``n_seq / D`` sequences, batched
+    as above. No collective runs until ``ParallelAdaptation.run`` gathers
+    the per-sequence results at the end.
+
+Each sequence keeps its own engine (``engine/refine.py``): its random
+generator (seeded from ``SETTINGS.seed`` plus the sequence's index, so a
+sequence's draws do not depend on which others share the batch), its depth
+regularizer's reference and its KNN warm starts. The engines share the
+runner's network module, whose weights the stacked tensors replace in the
+batched call; their own optimizers stay unused.
+
+Batch norm stays in inference mode (the model's ``train`` keeps it so), so
+the stacked running statistics are only read.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Sequence, Union
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.func import functional_call, vmap
+
+from e2eslam_tpu_torch.device import resolve_device, set_full_fp32
+from e2eslam_tpu_torch.engine.optim import make_optimizer
+from e2eslam_tpu_torch.engine.refine import PairBatch, RefinementEngine, validate_config
+from e2eslam_tpu_torch.models.convert import load_depth_weights
+from e2eslam_tpu_torch.models.depth_net import make_depth_model
+from e2eslam_tpu_torch.slam.pointclouds import MapState
+
+Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A 1-D device mesh: ``size`` processes of ``group`` (None: this
+    process alone, or the default group), this one ``rank``, on
+    ``device``."""
+
+    size: int
+    rank: int
+    group: object
+    device: torch.device
+    axis: str = "data"
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = "data", *, group=None,
+              device=None) -> Mesh:
+    """A mesh of ``n_devices`` (default: every rank of ``group``, or of the
+    default process group; one device without one). Each rank is one
+    device: ``device`` (``"cpu"``, or CUDA unless asked for the CPU; with
+    several ranks on CUDA, the card ``rank % device_count``). Asking for
+    more devices than the group has raises."""
+    distributed = dist.is_available() and dist.is_initialized()
+    available = dist.get_world_size(group) if distributed else 1
+    n = int(n_devices or available)
+    if n > available:
+        raise ValueError(f"requested a {n}-device mesh but only {available} device(s) are "
+                         "available")
+    dev = resolve_device(device)
+    if n == 1:
+        return Mesh(1, 0, None, dev, axis)
+    if n != available:
+        raise ValueError(f"a {n}-device mesh needs a process group of {n} ranks; the group "
+                         f"has {available}")
+    rank = dist.get_rank(group)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return Mesh(n, rank, group, dev, axis)
+
+
+@dataclass
+class ParallelState:
+    """The local sequences' networks and their optimizer: ``params`` and
+    ``buffers`` keyed as the network's own, each ``[n_local, ...]``; one
+    optimizer and schedule over the stacked parameters."""
+
+    params: Dict[str, Tensor]
+    buffers: Dict[str, Tensor]
+    optimizer: torch.optim.Optimizer
+    scheduler: object
+
+
+def pair_of(pairs: PairBatch, i: int) -> PairBatch:
+    """Sequence ``i``'s window of a stacked ``PairBatch``."""
+    return PairBatch(colors=pairs.colors[i], gt_depths=pairs.gt_depths[i],
+                     intrinsics=pairs.intrinsics[i], poses=pairs.poses[i])
+
+
+class ParallelRefinement:
+    """``n_seq`` independent sequences adapting in lockstep over the mesh.
+
+    ``n_seq`` defaults to one sequence per mesh device and may be any
+    multiple of the mesh size: ``n_seq / size`` sequences batch on each
+    device. ``model`` is the network to adapt (default: the config's,
+    ``make_depth_model`` with the configured weights); ``init_state``
+    copies it (or given per-sequence weights) for every sequence.
+    """
+
+    def __init__(self, config, model: Optional[nn.Module] = None, *, map_capacity: int,
+                 mesh: Optional[Mesh] = None, n_seq: Optional[int] = None, device=None):
+        validate_config(config)
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        size = self.mesh.size
+        self.n = size if n_seq is None else int(n_seq)
+        if self.n < 1 or self.n % size != 0:
+            raise ValueError(f"n_seq={self.n} must be a positive multiple of mesh size {size}")
+        self.n_local = self.n // size
+        self.first = self.mesh.rank * self.n_local  # global index of the first local sequence
+        self.device = self.mesh.device
+        set_full_fp32()
+        self.config = config
+        if model is None:
+            model = make_depth_model(config)
+            load_depth_weights(config, model)
+        self.model = model.to(self.device)
+        self.map_capacity = int(map_capacity)
+        self.engines = [RefinementEngine(config, self.model, map_capacity=self.map_capacity,
+                                         device=self.device) for _ in range(self.n_local)]
+        self.reseed()
+
+    def reseed(self, seeds: Optional[Sequence[int]] = None) -> None:
+        """Seed each local sequence's generator: ``seeds[global index]``, by
+        default ``SETTINGS.seed`` (1 when unset) plus the index; clear each
+        engine's depth-regularizer reference."""
+        base = self.config.SETTINGS.get("seed")
+        base = 1 if base is None else int(base)
+        for j, engine in enumerate(self.engines):
+            g = self.first + j
+            engine.generator.manual_seed(int(seeds[g]) if seeds is not None else base + g)
+            engine.initial_depths = None
+
+    def init_state(self, weights: Union[None, nn.Module, Mapping[str, Tensor]] = None
+                   ) -> ParallelState:
+        """Each local sequence's network and one optimizer over them.
+
+        ``weights``: None (the runner's network, copied to every sequence),
+        a module of the same architecture (likewise), or a mapping of
+        stacked per-sequence tensors ``{state-dict key: [n_seq, ...]}`` (for
+        example ``models/convert.py::from_jax_params_stacked``), of which
+        this rank takes its own sequences' rows."""
+        n, dev = self.n_local, self.device
+        own_params = dict(self.model.named_parameters())
+        own_buffers = dict(self.model.named_buffers())
+
+        def copies(t):
+            return t.detach().to(dev).unsqueeze(0).repeat((n,) + (1,) * t.dim()).contiguous()
+
+        if weights is None or isinstance(weights, nn.Module):
+            src = self.model if weights is None else weights
+            params = {k: copies(v) for k, v in src.named_parameters()}
+            buffers = {k: copies(v) for k, v in src.named_buffers()}
+        else:
+            missing = [k for k in list(own_params) + list(own_buffers)
+                       if k not in weights and not k.endswith("num_batches_tracked")]
+            if missing:
+                raise KeyError(f"stacked weights miss {missing[:8]}")
+            rows = slice(self.first, self.first + n)
+
+            def own(k, t):
+                if k.endswith("num_batches_tracked") and k not in weights:
+                    return copies(t)
+                return weights[k][rows].to(device=dev, dtype=t.dtype).clone().contiguous()
+
+            params = {k: own(k, v) for k, v in own_params.items()}
+            buffers = {k: own(k, v) for k, v in own_buffers.items()}
+        for k, p in params.items():
+            p.requires_grad_(own_params[k].requires_grad)
+        # The engine's rule: SGD steps every parameter (a zero gradient
+        # standing in for a missing one), the other optimizers the trainable.
+        sgd = self.config.OPTIMIZATION.optimizer == "SGD"
+        stepped = [p for p in params.values() if sgd or p.requires_grad]
+        optimizer, scheduler = make_optimizer(self.config, stepped)
+        return ParallelState(params, buffers, optimizer, scheduler)
+
+    def init_maps(self) -> List[MapState]:
+        """An empty map per local sequence."""
+        return [engine.make_empty_map() for engine in self.engines]
+
+    def forward(self, state: ParallelState, x: Tensor) -> Tensor:
+        """The network of every local sequence on its own images, one call:
+        ``x [n_local, B, H, W, 3]`` -> the disparity ``[n_local, B, H, W, 1]``.
+        One local sequence needs no batching: its network is called
+        directly (under ``vmap`` of one, cuDNN's float32 batch norm asks
+        the batched input for a channels-last layout, which ``vmap`` does
+        not answer)."""
+        def one(params, buffers, xi):
+            return functional_call(self.model, (params, buffers), (xi,))
+
+        if x.shape[0] == 1:
+            first = {k: v[0] for k, v in state.params.items()}
+            return one(first, {k: v[0] for k, v in state.buffers.items()}, x[0])[None]
+        return vmap(one)(state.params, state.buffers, x)
+
+    def _net_inputs(self, pairs: PairBatch) -> Tensor:
+        return torch.stack([e.net_input(pairs.colors[i]) for i, e in enumerate(self.engines)])
+
+    def refine_step(self, state: ParallelState, pairs: PairBatch, maps: List[MapState], *,
+                    map_indices=None, knn_init=None, thread_knn: bool = False, step: int = 0,
+                    active: Optional[Sequence[bool]] = None):
+        """One PFT step of every active local sequence. ``pairs``: each
+        field with a leading ``[n_local]`` axis; ``maps``, ``map_indices``
+        and ``knn_init``: one entry per local sequence. Inactive sequences
+        (``active`` False) run the network with the others but take no loss,
+        and their parameters and optimizer state are kept as they were.
+        Returns (metrics, KNN caches), one entry per local sequence (None
+        where inactive)."""
+        n = self.n_local
+        active = [True] * n if active is None else list(active)
+        map_indices = map_indices or [None] * n
+        knn_init = knn_init or [None] * n
+        state.optimizer.zero_grad(set_to_none=True)
+        out = self.forward(state, self._net_inputs(pairs))
+        F = pairs.colors.shape[1]
+        total, held = None, [None] * n
+        for i, engine in enumerate(self.engines):
+            if not active[i]:
+                continue
+            pair = pair_of(pairs, i)
+            disp, depth = engine.depths_from_net(out[i], F)
+            loss, aux, depth, _ = engine.step_loss(pair, disp, depth, maps[i], map_indices[i],
+                                                   knn_init[i], thread_knn, step)
+            total = loss if total is None else total + loss
+            held[i] = (pair, depth, loss, aux)
+        if total is not None:
+            total.backward()
+        self._commit(state, active)
+        metrics, caches = [None] * n, [None] * n
+        for i, h in enumerate(held):
+            if h is not None:
+                pair, depth, loss, aux = h
+                caches[i] = aux.pop("_knn_idx", None)
+                metrics[i] = self.engines[i].step_metrics(pair, depth, loss, aux)
+        return metrics, caches
+
+    def _commit(self, state: ParallelState, active: List[bool]) -> None:
+        """The optimizer and schedule step, committed to the active
+        sequences' rows only: an inactive sequence's parameters and
+        optimizer state are restored after the step (Adam moves a parameter
+        whose gradient is zero), as the JAX runner's ``where(act, new,
+        old)`` (parallel/adaptation.py:150-154). State the optimizer has not
+        made yet (its first step) is left as the step makes it.
+
+        The step counter and the learning-rate schedule are shared: they
+        are right for every sequence because each starts at event 0 and,
+        once done, never steps again."""
+        opt = state.optimizer
+        stepped = [p for group in opt.param_groups for p in group["params"]]
+        if self.config.OPTIMIZATION.optimizer == "SGD":
+            for p in stepped:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        idle = [i for i, a in enumerate(active) if not a]
+        saved = []
+        if idle:
+            rows = torch.tensor(idle, device=self.device)
+            for p in stepped:
+                kept = [p] + [t for t in opt.state.get(p, {}).values()
+                              if torch.is_tensor(t) and t.shape == p.shape]
+                saved += [(t, t.detach().index_select(0, rows).clone()) for t in kept]
+        opt.step()
+        state.scheduler.step()
+        with torch.no_grad():
+            for t, old in saved:
+                t.index_copy_(0, rows, old)
+
+    def fuse_pair(self, state: ParallelState, pairs: PairBatch, maps: List[MapState], *,
+                  fuse_prev: bool, active: Optional[Sequence[bool]] = None):
+        """Fuse each active local sequence's pair into its map, the network
+        of every sequence in one call. Returns (maps, estimated poses), the
+        inactive sequences' maps as they were and their poses None."""
+        n = self.n_local
+        active = [True] * n if active is None else list(active)
+        with torch.no_grad():
+            out = self.forward(state, self._net_inputs(pairs))
+        F = pairs.colors.shape[1]
+        maps, est = list(maps), [None] * n
+        for i, engine in enumerate(self.engines):
+            if active[i]:
+                _, depth = engine.depths_from_net(out[i], F)
+                maps[i], est[i] = engine.fuse_depth(pair_of(pairs, i), depth, maps[i],
+                                                    fuse_prev=fuse_prev)
+        return maps, est

@@ -248,9 +248,151 @@ def test_checkpoint_stale_files_and_missing_manifest(tmp_path):
 
 
 def test_jax_msgpack_checkpoint_is_refused(tmp_path):
+    """A JAX package checkpoint directory (flax msgpack files) was once
+    refused; ``load_checkpoint`` now reads it: every parameter and
+    statistic equal to the bit, the disparity the JAX network's to the CNN
+    tolerance (1e-4 relative, 1e-5 absolute), the manifest's meta
+    returned."""
+    from e2eslam_tpu.checkpoint import save_checkpoint as jax_save
+    from e2eslam_tpu_torch.models.convert import from_jax_params
+
+    (params, stats), apply = _jax_network("indoor")
+    jax_save(str(tmp_path), params, stats, meta={"keyframes": 4})
+    net = make_depth_model(_cfgs("indoor")[1], seed=3)
+    assert load_checkpoint(str(tmp_path), net) == {"keyframes": 4}
+    own = net.state_dict()
+    for k, v in from_jax_params(params, stats).items():
+        assert torch.equal(own[k], v), k
+    x = np.random.default_rng(1).uniform(size=(2, H, W, 3)).astype(np.float32)
+    want = np.asarray(apply({"params": params, "batch_stats": stats}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = net(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _grads(tree):
+    """A deterministic gradient per leaf (numpy)."""
+    return jax.tree_util.tree_map(lambda p: np.sin(7.0 * np.asarray(p) + 1.0), tree)
+
+
+def test_jax_adam_state_resumes_in_torch_adam(tmp_path):
+    """JAX ``save_checkpoint`` of params, batch stats and an optax Adam state
+    after two updates -> the port's ``load_checkpoint`` into a network and
+    torch's Adam: one more step on the same gradients equals optax's next
+    step (1e-6 relative, as tests/test_torch_optim.py holds the two
+    Adams); the restored moments and step count equal optax's to the bit."""
+    import optax
+
+    from e2eslam_tpu.checkpoint import save_checkpoint as jax_save
+    from e2eslam_tpu_torch.models.convert import from_jax_params
+
+    (params, stats), _ = _jax_network("indoor")
+    tx = optax.adam(1e-2)
+    opt_state = tx.init(params)
+    p = params
+    for _ in range(2):
+        updates, opt_state = tx.update(_grads(p), opt_state, p)
+        p = optax.apply_updates(p, updates)
+    p = jax.tree_util.tree_map(np.asarray, p)
+    jax_save(str(tmp_path), p, stats, opt_state)
+    updates, _ = tx.update(_grads(p), opt_state, p)
+    want = from_jax_params(jax.tree_util.tree_map(np.asarray, optax.apply_updates(p, updates)),
+                           stats)
+
+    cfg = _cfgs("indoor")[1]
+    cfg.OPTIMIZATION.learning_rate = 1e-2
+    cfg.OPTIMIZATION.schedular = None
+    net = make_depth_model(cfg)
+    opt, _ = make_optimizer(cfg, net.parameters())
+    load_checkpoint(str(tmp_path), net, opt)
+    mu = from_jax_params(jax.tree_util.tree_map(np.asarray, opt_state[0].mu), {})
+    named = dict(net.named_parameters())
+    for k, m in mu.items():
+        st = opt.state[named[k]]
+        assert float(st["step"]) == 2.0
+        assert torch.equal(st["exp_avg"], m), k
+    grads = from_jax_params(_grads(p), {})
+    for k, t in named.items():
+        t.grad = grads[k].clone()
+    opt.step()
+    for k, t in named.items():
+        w = want[k].numpy()
+        np.testing.assert_allclose(t.detach().numpy(), w, rtol=1e-6,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=k)
+
+
+def test_jax_checkpoint_rules(tmp_path):
+    """The JAX package's manifest rules: a missing manifest raises; a file
+    the manifest does not record is not read; an optimizer state other
+    than optax Adam's is refused, naming what it holds."""
+    import optax
+
     from e2eslam_tpu.checkpoint import save_checkpoint as jax_save
 
     (params, stats), _ = _jax_network("indoor")
+    cfg = _cfgs("indoor")[1]
+    sgd = optax.chain(optax.add_decayed_weights(1e-3), optax.sgd(1e-2, momentum=0.9))
+    path = str(tmp_path / "sgd")
+    jax_save(path, params, stats, sgd.init(params))
+    net = make_depth_model(cfg)
+    opt, _ = make_optimizer(cfg, net.parameters())
+    with pytest.raises(ValueError, match="trace"):
+        load_checkpoint(path, net, opt)
+    load_checkpoint(path, make_depth_model(cfg))  # without an optimizer: the weights only
+    # A later save without batch stats: the stale file on disk is not read.
+    jax_save(path, params)
+    net = make_depth_model(cfg, seed=4)
+    before = {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
+    load_checkpoint(path, net)
+    for k, v in before.items():
+        assert torch.equal(net.state_dict()[k], v), k
+    os.remove(os.path.join(path, "manifest.json"))
+    with pytest.raises(FileNotFoundError):
+        load_checkpoint(path, make_depth_model(cfg))
+
+
+def test_online_adaptation_restores_a_jax_checkpoint(tmp_path):
+    """``MODEL.restore_checkpoint`` naming a JAX package directory: the
+    runner's network starts from its weights."""
+    from e2eslam_tpu.checkpoint import save_checkpoint as jax_save
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+    from e2eslam_tpu_torch.models.convert import from_jax_params
+
+    (params, stats), _ = _jax_network("indoor")
     jax_save(str(tmp_path), params, stats)
-    with pytest.raises(ValueError, match="load_jax_params"):
-        load_checkpoint(str(tmp_path), make_depth_model(_cfgs("indoor")[1]))
+    cfg = _cfgs("indoor")[1]
+    cfg.MODEL.restore_checkpoint = str(tmp_path)
+    runner = OnlineAdaptation(cfg, device="cpu", model=make_depth_model(cfg, seed=9))
+    own = runner.engine.model.state_dict()
+    for k, v in from_jax_params(params, stats).items():
+        assert torch.equal(own[k], v), k
+
+
+def test_msgpack_decoder_matches_msgpack():
+    """The port's decoder against the ``msgpack`` package's encoder on every
+    wire type a flax file can hold, and flax's arrays (bfloat16 included)."""
+    import msgpack
+    from flax import serialization
+
+    from e2eslam_tpu_torch.checkpoint import msgpack_decode
+
+    values = [None, True, False, 0, 127, 128, 255, 65535, 2**32, 2**64 - 1, -1, -32, -33,
+              -129, -2**31 - 1, -2**63, 1.5, -0.25, "", "a" * 31, "b" * 40, "c" * 300,
+              "d" * 70000, b"", b"x" * 300, b"y" * 70000, [1] * 15, [2] * 16, [3] * 70000,
+              {f"k{i}": i for i in range(15)}, {f"k{i}": i for i in range(16)},
+              {f"k{i}": i for i in range(70000)}, {"nested": {"list": [1, "two", None]}}]
+    for v in values:
+        assert msgpack_decode(msgpack.packb(v, use_bin_type=True)) == v
+    tree = {"f32": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "bf16": np.asarray(jnp.asarray([1.5, -2.25, 3.0], jnp.bfloat16)),
+            "i32": np.array([[1, -2]], np.int32), "scalar": np.float32(2.5),
+            "empty": np.zeros((0, 3), np.float32)}
+    got = msgpack_decode(serialization.msgpack_serialize(tree))
+    for k, v in tree.items():
+        want = torch.from_numpy(np.asarray(v, np.float32)) if k == "bf16" else \
+            torch.from_numpy(np.asarray(v))
+        assert tuple(got[k].shape) == np.shape(v), k
+        assert torch.equal(got[k].float(), want.float()), k
+    assert got["bf16"].dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        msgpack_decode(msgpack.packb([1, 2]) + b"\x00")

@@ -37,6 +37,10 @@ def test_every_port_module_imports_without_jax():
         "utils", "utils.corruption", "utils.focal", "viz", "viz.logging", "viz.images",
         "viz.pointcloud_export", "viz.animation")}
     assert offline <= set(mods), sorted(offline - set(mods))
+    parallel = {f"e2eslam_tpu_torch.{m}" for m in (
+        "ops.batched_rows", "ops.knn_sharded", "losses.points_sharded", "parallel",
+        "parallel.mesh", "parallel.adaptation")}
+    assert parallel <= set(mods), sorted(parallel - set(mods))
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:

@@ -20,7 +20,10 @@ weights), each run in a process of its own stopped after ``--limit-min``
 minutes, and prints one summary line per run (side, seed, mean abs_rel,
 keyframes, map size, seconds; or the time a stopped run had): the spread
 of mean abs_rel over seeds on each side, at the flagship's full size with
-the defaults above.
+the defaults above. Both sides run their per-keyframe loops and print each
+refinement step (the JAX runner with ``use_sequence_program`` off), so a
+stopped run still reports the keyframes it reached; per seed, a last line
+holds both sides' mean abs_rel over the keyframes both reached.
 """
 
 import os
@@ -34,6 +37,7 @@ import conftest  # noqa: E402,F401  (JAX on the CPU, as the tests run it)
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 
@@ -68,21 +72,24 @@ def _runner(args, seed):
     return jr, weights
 
 
-def _port_run(args, weights):
+def _port_run(args, weights, verbose=False):
     cfg = flagship_config(load_yaml(default_config_path()))
     cfg.DATA.height, cfg.DATA.width = args.height, args.height * 5 // 4
     cfg.DEMO.sequence_length = args.frames
     cfg.SETTINGS.compute_dtype = args.dtype
     model = make_depth_model(cfg)
     load_jax_params(model, *weights)
-    return OnlineAdaptation(cfg, device="cpu", model=model).run(verbose=False)
+    return OnlineAdaptation(cfg, device="cpu", model=model).run(verbose=verbose)
 
 
 def _one(args):
     """One side, one seed: its summary line."""
     t0 = time.perf_counter()
     jr, weights = _runner(args, args.seed)
-    r = jr.run(verbose=False) if args.side == "jax" else _port_run(args, weights)
+    # The per-keyframe loop, which reports each keyframe as it ends (the
+    # whole-sequence program reports nothing before the end).
+    jr.use_sequence_program = False
+    r = jr.run(verbose=True) if args.side == "jax" else _port_run(args, weights, verbose=True)
     print(json.dumps({"side": args.side, "seed": args.seed, "height": args.height,
                       "frames": args.frames, "dtype": args.dtype,
                       "mean_abs_rel": float(r["mean_abs_rel"]),
@@ -91,32 +98,61 @@ def _one(args):
                       "seconds": time.perf_counter() - t0}), flush=True)
 
 
+STEP_LINE = re.compile(r"^frame (\d+) refine_step (\d+) .*abs_rel ([-+0-9.eE]+|nan)")
+
+
+def _per_keyframe(stdout: str) -> dict:
+    """{frame: abs_rel of its last refinement step} from a run's step lines."""
+    out = {}
+    for ln in (stdout or "").splitlines():
+        m = STEP_LINE.match(ln)
+        if m:
+            out[int(m.group(1))] = float(m.group(3))
+    return out
+
+
 def _seeds(args, argv):
     """Each side alone per seed, each run in its own process under the time
-    limit; a stopped run's line says how far it got."""
+    limit; a stopped run's line says how far it got. Per seed, a last line
+    compares the sides over the keyframes both reached."""
     lines = []
+
+    def emit(line):
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(line) + "\n")
+
     for seed in args.seeds:
+        reached = {}
         for side in args.sides:
-            cmd = [sys.executable, os.path.abspath(__file__), "--height", str(args.height),
-                   "--frames", str(args.frames), "--dtype", args.dtype, "--side", side,
-                   "--seed", str(seed)]
+            cmd = [sys.executable, "-u", os.path.abspath(__file__), "--height",
+                   str(args.height), "--frames", str(args.frames), "--dtype", args.dtype,
+                   "--side", side, "--seed", str(seed)]
             t0 = time.perf_counter()
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True,
                                       timeout=args.limit_min * 60)
-                rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+                stdout = proc.stdout
+                rows = [ln for ln in stdout.splitlines() if ln.startswith("{")]
                 line = json.loads(rows[-1]) if rows else {
                     "side": side, "seed": seed, "failed": proc.stderr[-500:]}
-            except subprocess.TimeoutExpired:
+            except subprocess.TimeoutExpired as e:
+                stdout = e.stdout.decode() if isinstance(e.stdout, bytes) else (e.stdout or "")
                 line = {"side": side, "seed": seed, "stopped_after_s": time.perf_counter() - t0,
-                        "reason": f"no result within {args.limit_min} min (the JAX side "
-                                  "compiles and runs its whole-sequence program as one call, "
-                                  "so it reports nothing before the end)"}
-            print(json.dumps(line), flush=True)
-            lines.append(line)
-            if args.out:
-                with open(args.out, "a") as f:
-                    f.write(json.dumps(line) + "\n")
+                        "reason": f"no result within {args.limit_min} min"}
+            per_kf = _per_keyframe(stdout)
+            reached[side] = per_kf
+            line["keyframes_reached"] = len(per_kf)
+            line["per_keyframe_abs_rel"] = {str(k): v for k, v in sorted(per_kf.items())}
+            emit(line)
+        if len(reached) == 2:
+            common = sorted(set(reached["jax"]) & set(reached["port"]))
+            emit({"seed": seed, "common_keyframes": len(common),
+                  **{f"mean_abs_rel_{side}": (float(np.mean([reached[side][k] for k in common]))
+                                              if common else float("nan"))
+                     for side in ("jax", "port")}})
     return lines
 
 
