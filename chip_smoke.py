@@ -144,7 +144,33 @@ Phases (any failure ends the script with a non-zero exit):
               world-size-1 NCCL group through knn_map_sharded and
               chamfer_distance_map_sharded. More than one card is not
               exercised here: the multi-rank paths are tested on gloo;
- 13. small    the default path, the chamfer one, index fusion and
+ 13. sequence the whole-sequence program (engine/refine.py::process_sequence:
+              on the card events 0-1 eager on a side stream, then one
+              captured CUDA graph replayed for every later event, the map's
+              count on the device) against the per-keyframe loop, each of
+              SEQUENCE_RUNS at 320x256, ResNet-18, R = 3, deterministic
+              algorithms (the default config over 12 and 60 frames, the
+              flagship over 60, gradicp over 12, compact over 60, the
+              chamfer config over 12), through both: equal keyframes and
+              compaction events, the first keyframe within
+              SEQUENCE_FIRST_TOL; held further (the second keyframe, the
+              mean within SEQUENCE_MEAN_TOL, the map within max(4, count //
+              1000)) where program and loop compute the same function: the
+              index path as it ships, the brute path with the KNN's seeds
+              dropped and the fused Adam (the program seeds each event from
+              the last one's neighbours, and its per-tensor Adam rounds the
+              update differently: the shipped brute runs' gaps are
+              printed); first the data path alone, the default config at learning
+              rate 0, equal to the loop in every abs_rel and map point; the
+              replays run under set_sync_debug_mode("error"); host syncs an
+              event for default_12; launches counted as eager plus captured
+              times replays (the wrappers' counts see a captured launch
+              once); the captured candidate call (default_12), the captured
+              map->frame resident call (chamfer_12) and a dense call on the
+              former's inputs held against the plain versions with the
+              counts as device tensors; steps/s with and without the
+              capture time;
+ 14. small    the default path, the chamfer one, index fusion and
               association (float32), the flagship settings, gradICP, the
               voxel association, the ICL sequence and the compact workload
               at 64x64 on the card, with deterministic
@@ -155,7 +181,7 @@ Phases (any failure ends the script with a non-zero exit):
               ``python3 chip_smoke.py --small-repeats N [config ...]``, which
               runs only this phase, N times, and reports the gaps).
 ``python3 chip_smoke.py --phases icl compact train_depth oft scale
-scaling_tools recover demo batched sharded small:icl ...`` runs only the
+scaling_tools recover demo batched sharded sequence small:icl ...`` runs only the
 named phases
 (after the build), each with its checks, and prints neither the kernels
 line nor the result; ``--small-repeats N scale scaling_tools`` measures
@@ -164,7 +190,8 @@ batched-vs-solo gaps behind BATCHED_MEAN_TOL.
 The second-to-last line is the kernels' JSON line (the resident kernel has
 a second entry, ``"call": "chamfer b->a"``, for its map->frame calls, the
 dense kernel one for the recover phase's cold calls, ``"call": "recover
-cold"``; each entry counts its launches per path), the last line the
+cold"``; each entry counts its launches per path, ``sequence_launches``
+the sequence phase's program runs' device launches), the last line the
 result.
 Kernel and plain version must agree to the float32 rounding bound of the
 score (``fp32_distance_bound`` in ops/knn.py, from the rows picked); where
@@ -270,6 +297,14 @@ class Recorder:
             setattr(self.mod, name, orig)
 
 
+def keyframe_loop(runner):
+    """``runner`` (an ``OnlineAdaptation``) on the per-keyframe loop: the
+    phases before ``sequence`` measure the loop they measured before the
+    whole-sequence program existed."""
+    runner.use_sequence_program = False
+    return runner
+
+
 def timed(fn, reps: int):
     import torch
 
@@ -299,7 +334,7 @@ def compare_call(knn, key, args, tag, stats, *, timing=False, plain=None, stats_
     kern = getattr(knn, f"{key}_kernel")
     plain = plain or getattr(knn, f"{key}_plain")
     q4, r4 = args[0], args[1]
-    nq = args[-3]
+    nq = int(args[-3])  # a device count (the program's calls) is read here
     s_k, i_k = kern(*args)
     s_p, i_p = plain(*args)
     torch.cuda.synchronize()
@@ -591,7 +626,7 @@ def phase_main(knn, stats):
 
     cfg = load_yaml(default_config_path())
     cfg.DEMO.sequence_length = 12  # the only cut: ~10 keyframes
-    runner = OnlineAdaptation(cfg)  # CUDA: the entry point's default
+    runner = keyframe_loop(OnlineAdaptation(cfg))  # CUDA: the entry point's default
     for k in knn.KERNELS:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -697,7 +732,7 @@ def phase_chamfer(knn, stats):
     from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
 
     cfg = chamfer_config(load_yaml(default_config_path()))  # no cut: all 40 frames
-    runner = OnlineAdaptation(cfg)
+    runner = keyframe_loop(OnlineAdaptation(cfg))
     for k in knn.KERNELS:
         k.launches = 0
     with Recorder(knn, frame_rows=int(cfg.DATA.height) * int(cfg.DATA.width)) as rec:
@@ -823,7 +858,7 @@ def phase_losses(knn, stats):
         cfg.LOSS.three3d_texture_gate = 600.0
         cfg.MODEL.update(model)
         net = cfg.MODEL.depth_network
-        runner = OnlineAdaptation(cfg)
+        runner = keyframe_loop(OnlineAdaptation(cfg))
         for k in knn.KERNELS:
             k.launches = 0
         with Recorder(knn, keep_all=True) as rec:
@@ -906,10 +941,10 @@ def phase_flagship(knn, smi):
 
     warm = flagship_config(load_yaml(default_config_path()))
     warm.DEMO.sequence_length = 4
-    OnlineAdaptation(warm).run(verbose=False)
+    keyframe_loop(OnlineAdaptation(warm)).run(verbose=False)
 
     def run(deterministic):
-        runner = OnlineAdaptation(flagship_config(load_yaml(default_config_path())))
+        runner = keyframe_loop(OnlineAdaptation(flagship_config(load_yaml(default_config_path()))))
         for k in knn.KERNELS:
             k.launches = 0
         with algorithms(deterministic):
@@ -1041,11 +1076,11 @@ def phase_gradicp(knn, smi):
 
     warm = gradicp_config(load_yaml(default_config_path()))
     warm.DEMO.sequence_length = 4
-    OnlineAdaptation(warm).run(verbose=False)
+    keyframe_loop(OnlineAdaptation(warm)).run(verbose=False)
     print(json.dumps({"phase": "gradicp", "reference": JAX_GRADICP_ROW}), flush=True)
     total = dict.fromkeys(KERNEL_INFO, 0)
     for deterministic in (False, True):
-        runner = OnlineAdaptation(gradicp_config(load_yaml(default_config_path())))
+        runner = keyframe_loop(OnlineAdaptation(gradicp_config(load_yaml(default_config_path()))))
         for k in knn.KERNELS:
             k.launches = 0
         with algorithms(deterministic):
@@ -1093,7 +1128,7 @@ def _default_run(knn, stats, phase, frames, label, *, knn_path, **settings):
     for key, value in settings.items():
         section, flag = key.split(".")
         cfg[section][flag] = value
-    runner = OnlineAdaptation(cfg)
+    runner = keyframe_loop(OnlineAdaptation(cfg))
     for k in knn.KERNELS:
         k.launches = 0
     with Recorder(knn, keep_all=True) as rec:
@@ -1181,7 +1216,7 @@ def phase_est_pose(knn, stats):
         section, flag = key.split(".")
         cfg[section][flag] = value
     # The frozen inputs: each keyframe window, the seeded network's depths.
-    probe = OnlineAdaptation(cfg)
+    probe = keyframe_loop(OnlineAdaptation(cfg))
     eng = probe.engine
     colors, gt, K, poses, _ = load_batch(probe.dataset, [0])
     gaps = []
@@ -1288,7 +1323,7 @@ def phase_icl(knn, stats, smi):
         weights = seeded_weights_dir(icl_config(), os.path.join(tmp, "indoor"))
         cfg = icl_config(weights)
         cfg.MODEL.save_checkpoint = os.path.join(tmp, "adapted")
-        runner = OnlineAdaptation(cfg)
+        runner = keyframe_loop(OnlineAdaptation(cfg))
         print(json.dumps({"phase": "icl", "decoder": runner.dataset.decoder,
                           "native_loader": native_loader.unavailable_reason() or "built",
                           "frames": len(runner.dataset.rgb_files),
@@ -1320,7 +1355,7 @@ def phase_icl(knn, stats, smi):
 
         restored = icl_config(weights)
         restored.MODEL.restore_checkpoint = cfg.MODEL.save_checkpoint
-        fresh = OnlineAdaptation(restored)
+        fresh = keyframe_loop(OnlineAdaptation(restored))
         a, b = runner.engine.model.state_dict(), fresh.engine.model.state_dict()
         same_state = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
         x = torch.from_numpy(runner.dataset[0][0][:2] / 255.0).float().to(runner.device)
@@ -1446,7 +1481,7 @@ def phase_compact(knn, stats, smi, flagship):
     from e2eslam_tpu_torch.config import default_config_path, load_yaml
     from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
 
-    runner = OnlineAdaptation(compact_config(load_yaml(default_config_path())))
+    runner = keyframe_loop(OnlineAdaptation(compact_config(load_yaml(default_config_path()))))
     for k in knn.KERNELS:
         k.launches = 0
     with CompactionProbe() as probe:
@@ -1486,7 +1521,7 @@ def phase_compact(knn, stats, smi, flagship):
     cfg.MODEL.compact_mode = "voxel"
     cfg.MODEL.compact_voxel = 0.01
     cfg.LOSS.knn_sort_period = 3
-    runner = OnlineAdaptation(cfg)
+    runner = keyframe_loop(OnlineAdaptation(cfg))
     for k in knn.KERNELS:
         k.launches = 0
     with CompactionProbe() as probe, Recorder(knn, keep_all=True) as rec:
@@ -1628,7 +1663,7 @@ def phase_small(name, check=True):
         cfg.DATA.height, cfg.DATA.width = 64, 64
         cfg.DEMO.sequence_length = 5
         cfg.DEMO.frame_threshold = 0.01
-        return OnlineAdaptation(setup(cfg), device=device).run(verbose=False)
+        return keyframe_loop(OnlineAdaptation(setup(cfg), device=device)).run(verbose=False)
 
     # One card run with deterministic algorithms (restored after), held to
     # the CPU keyframe by keyframe; with the default ones, atomics in the
@@ -2078,7 +2113,8 @@ def _solo(cfg, dataset, i):
 
     c = copy.deepcopy(cfg)
     c.SETTINGS.seed = 1 + i
-    return OnlineAdaptation(c, dataset=dataset, model=make_depth_model(cfg)).run(verbose=False)
+    runner = keyframe_loop(OnlineAdaptation(c, dataset=dataset, model=make_depth_model(cfg)))
+    return runner.run(verbose=False)
 
 
 def _gap(par, solo):
@@ -2449,6 +2485,239 @@ def phase_sharded(knn, stats):
     return launches
 
 
+# The whole-sequence program against the per-keyframe loop: (label,
+# profile_adaptation workload, frames, settings, seedless, held). Every run
+# has deterministic algorithms (the flagship-based runs spread by
+# 0.078-0.102 in mean abs_rel with the default ones, PERF.md section 2). Two
+# things part a brute-path program run from its loop run by design, and
+# Adam's normalised first steps carry either along the run: the program
+# seeds each event's first search with the previous event's neighbours
+# (the JAX program's cross-keyframe cache) where the loop seeds it from the
+# map's tail, and a seed keeps a float32 near-tie the other search gives to
+# another row; and the per-tensor Adam runs its capturable form in the
+# program, which rounds the update differently. So the held brute runs
+# drop the KNN's seeds (``seedless``: both sides search cold, the dense and
+# resident kernels) and take the fused Adam (one kernel in both), and the
+# index path (no KNN) is held as it ships; the shipped brute runs are
+# reported, held to equal keyframes and the first keyframe only.
+FUSED = {"OPTIMIZATION__fused_update": True}
+SEQUENCE_RUNS = (
+    ("default_12", "config", 12, {}, False, False),
+    ("default_12_seedless", "config", 12, FUSED, True, True),
+    ("default_60", "config", 60, {}, False, False),
+    ("default_60_seedless", "config", 60, FUSED, True, True),
+    ("flagship_60", "flagship", 60, {}, False, True),
+    ("gradicp_12", "gradicp", 12, {}, False, True),
+    ("compact_60", "compact", 60, {}, False, True),
+    ("chamfer_12", "chamfer", 12, {}, False, False),
+    ("chamfer_12_seedless", "chamfer", 12, FUSED, True, True),
+)
+SEQUENCE_FIRST_TOL = 1e-3  # the first two keyframes' abs_rel, relative (the run tolerance)
+SEQUENCE_MEAN_TOL = 0.005  # mean abs_rel (PERF.md section 2)
+
+
+@contextlib.contextmanager
+def _seedless():
+    """The engine's KNN searches with their warm-start seeds dropped."""
+    from e2eslam_tpu_torch.engine import refine
+    from e2eslam_tpu_torch.losses import points
+
+    search = refine.knn
+
+    def cold(query, ref, nr=None, nq=None, init_idx=None, q_perm=None):
+        return search(query, ref, nr, nq)
+
+    refine.knn = points.knn = cold
+    try:
+        yield
+    finally:
+        refine.knn = points.knn = search
+
+
+def _sequence_run(knn, workload, frames, program, rec=None, sync_warn=False, seedless=False,
+                  **settings):
+    """One run of a profile_adaptation workload cut to ``frames``, with
+    deterministic algorithms and ``settings`` (``SECTION__key``: value),
+    through the whole-sequence program (its replays under
+    ``set_sync_debug_mode("error")``: a synchronisation raises) or the
+    per-keyframe loop. Returns (result, line); the line's ``launches`` are
+    the kernels' launches on the device: the eager ones plus each launch
+    captured in the graph times its replays (the wrappers' counts and a
+    Recorder see a captured launch once, at capture, where it does not
+    run)."""
+    import warnings
+
+    import torch
+
+    from e2eslam_tpu_torch.apps.profile_adaptation import WORKLOADS
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    cfg = WORKLOADS[workload](load_yaml(default_config_path()))
+    cfg.DEMO.sequence_length = frames
+    for key, value in settings.items():
+        sec, flag = key.split("__")
+        cfg[sec][flag] = value
+    runner = OnlineAdaptation(cfg)
+    runner.use_sequence_program = program
+    captured = {}
+    if program:
+        runner.engine.replay_sync_mode = "error"
+        capture = runner.engine._capture_event
+
+        def counted(*args, **kw):
+            before = launch_counts(knn)
+            graph = capture(*args, **kw)
+            captured.update({k: n - before[k] for k, n in launch_counts(knn).items()})
+            return graph
+
+        runner.engine._capture_event = counted
+    _reset(knn)
+    with algorithms(True), rec or contextlib.nullcontext(), \
+            _seedless() if seedless else contextlib.nullcontext(), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if sync_warn:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = runner.run(verbose=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counted_launches = launch_counts(knn)
+    replays = max(result["num_keyframes"] - 2, 0) if result["graphs"] else 0
+    launches = {k: n - captured.get(k, 0) + captured.get(k, 0) * replays
+                for k, n in counted_launches.items()}
+    busy = result["elapsed_s"] - result["capture_s"]
+    line = {"phase": "sequence", "workload": workload, "frames": frames, "settings": settings,
+            "program": result["sequence_program"], "graphs": result["graphs"],
+            "capture_s": result["capture_s"], "elapsed_s": result["elapsed_s"],
+            "steps_per_sec": result["steps_per_sec"],
+            "steps_per_sec_no_capture": result["refine_steps"] / busy if busy > 0 else 0.0,
+            "keyframes": result["num_keyframes"], "mean_abs_rel": result["mean_abs_rel"],
+            "abs_rel_first_two": [m["abs_rel"] for m in result["metrics"][:2]],
+            "map_points": result["map_points"], "ate": result["ate"], "rpe": result["rpe"],
+            "launches": launches, "captured_launches": captured, "replays": replays,
+            "compactions": [c["keyframe"] for c in result["compactions"]]}
+    if sync_warn:
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        line.update(host_syncs=syncs, host_syncs_per_event=syncs / max(result["num_keyframes"], 1))
+    return result, line
+
+
+def _gaps(a, b):
+    """(each keyframe's relative abs_rel gap, mean abs_rel gap, map gap) of
+    run ``a`` against run ``b``."""
+    rel = [abs(x["abs_rel"] - y["abs_rel"]) / y["abs_rel"]
+           for x, y in zip(a["metrics"], b["metrics"])]
+    return rel, abs(a["mean_abs_rel"] - b["mean_abs_rel"]), abs(a["map_points"]
+                                                               - b["map_points"])
+
+
+def _check_pair(label, prog, loop, pline, lline, held):
+    """The program's run against the loop's: equal keyframes and compaction
+    events, finite abs_rel, the first keyframe's abs_rel within
+    SEQUENCE_FIRST_TOL and, when ``held``, the second's too, the mean within
+    SEQUENCE_MEAN_TOL and the map within the tie allowance
+    max(4, count // 1000) (tests/test_engine.py:506-508). Returns the
+    gaps."""
+    rel, mean_gap, map_gap = _gaps(prog, loop)
+    allowance = max(4, loop["map_points"] // 1000)
+    if not prog["sequence_program"] or loop["sequence_program"]:
+        fail(f"sequence {label}: the program and the loop were not the runs' paths")
+    if prog["graphs"] != (1 if prog["num_keyframes"] > 2 else 0):
+        fail(f"sequence {label}: {prog['graphs']} graphs captured")
+    if prog["keyframes"] != loop["keyframes"]:
+        fail(f"sequence {label}: keyframes differ from the loop's")
+    if pline["compactions"] != lline["compactions"]:
+        fail(f"sequence {label}: compaction events differ from the loop's")
+    if not all(map(_finite, [m["abs_rel"] for m in prog["metrics"]])):
+        fail(f"sequence {label}: non-finite abs_rel")
+    if max(rel[:2] if held else rel[:1]) > SEQUENCE_FIRST_TOL:
+        fail(f"sequence {label}: the first keyframes' abs_rel part from the loop's "
+             f"by {rel[:2]}")
+    if held and mean_gap > SEQUENCE_MEAN_TOL:
+        fail(f"sequence {label}: mean abs_rel {prog['mean_abs_rel']} against the loop's "
+             f"{loop['mean_abs_rel']}")
+    if held and map_gap > allowance:
+        fail(f"sequence {label}: map points {prog['map_points']} against the loop's "
+             f"{loop['map_points']}")
+    return {"held": held, "first_two_rel_gap": rel[:2], "max_rel_gap": max(rel),
+            "mean_abs_rel_gap": mean_gap, "map_gap": map_gap, "map_allowance": allowance}
+
+
+def phase_sequence(knn, stats, smi):
+    """The whole-sequence program (engine/refine.py::process_sequence: on
+    the card events 0-1 eager, then one captured CUDA graph replayed for
+    every later event) against the per-keyframe loop, each run of
+    SEQUENCE_RUNS through both at 320x256, ResNet-18, R = 3, deterministic
+    algorithms (``_check_pair``). First the data path alone: the default
+    config's 12 frames at learning rate 0 (the network frozen), where the
+    program must give the loop's every abs_rel and map point. No host
+    synchronisation inside a replay (the runs raise on one); host syncs an
+    event counted for default_12 (``set_sync_debug_mode("warn")``). The
+    default program's captured candidate call, the chamfer program's
+    captured map->frame resident call and a dense call on the former's
+    inputs, all with the counts given as device tensors, are held against
+    the plain versions. Returns the shipped program runs' device launches
+    per kernel (eager launches plus captured launches times replays)."""
+    import torch
+
+    _sequence_run(knn, "config", 4, True)  # warm-up: cuDNN's first calls
+    frozen = {"OPTIMIZATION__learning_rate": 0.0}
+    prog, pline = _sequence_run(knn, "config", 12, True, **frozen)
+    loop, lline = _sequence_run(knn, "config", 12, False, **frozen)
+    rel, _, map_gap = _gaps(prog, loop)
+    print(json.dumps({"phase": "sequence", "run": "default_12_frozen", "max_rel_gap": max(rel),
+                      "map_gap": map_gap, "keyframes": prog["num_keyframes"]}), flush=True)
+    if prog["keyframes"] != loop["keyframes"] or max(rel) > 1e-6 or map_gap:
+        fail(f"sequence default_12_frozen: the program's data path parts from the loop's "
+             f"(abs_rel {max(rel)}, map {map_gap})")
+    totals = {key: 0 for key in KERNEL_INFO}
+    for label, workload, frames, settings, seedless, held in SEQUENCE_RUNS:
+        rec = None
+        if label == "default_12":
+            rec = Recorder(knn)
+        elif label == "chamfer_12":
+            rec = Recorder(knn, frame_rows=320 * 256)
+        sync_warn = label == "default_12"
+        prog, pline = _sequence_run(knn, workload, frames, True, rec, sync_warn, seedless,
+                                    **settings)
+        loop, lline = _sequence_run(knn, workload, frames, False, sync_warn=sync_warn,
+                                    seedless=seedless, **settings)
+        for key in totals:
+            totals[key] += 0 if seedless else pline["launches"][key]
+        gaps = _check_pair(label, prog, loop, pline, lline, held)
+        print(json.dumps({"phase": "sequence", "run": label, "program": pline, "loop": lline,
+                          "gaps": gaps,
+                          "speedup": pline["steps_per_sec"] / lline["steps_per_sec"],
+                          "speedup_no_capture": pline["steps_per_sec_no_capture"]
+                          / lline["steps_per_sec"], "nvidia_smi": smi}), flush=True)
+        if label == "default_12":
+            if pline["captured_launches"]["cand"] == 0:
+                fail("sequence default_12: the captured event launches no candidate kernel")
+            if pline["host_syncs"] > lline["host_syncs"]:
+                fail("sequence default_12: the program synchronised more than the loop")
+            cand = rec.calls["cand"][1]
+            if not knn.is_device_count(cand[-2]):
+                fail("sequence default_12: the captured candidate call took a host count")
+            compare_call(knn, "cand", cand, "sequence captured (device counts)", stats,
+                         stats_key="cand_sequence")
+            q4, r4, _, s0, i0, _, _, nq, nr, _ = cand
+            dense_args = (q4, r4, knn._tile_boxes(r4[:, :3], knn.RT), s0, i0, nq, nr, knn.RT)
+            compare_call(knn, "dense", dense_args, "sequence inputs (device counts)", stats,
+                         stats_key="dense_sequence")
+        if label == "chamfer_12":
+            if pline["captured_launches"]["resident"] == 0:
+                fail("sequence chamfer_12: the captured event launches no resident kernel")
+            ba = rec.calls["resident:ba"][1]
+            if not knn.is_device_count(ba[-3]):
+                fail("sequence chamfer_12: the captured map->frame call took a host count")
+            compare_call(knn, "resident", ba, "sequence captured b->a (device counts)", stats,
+                         plain=resident_plain_by_tiles(knn), stats_key="resident_sequence")
+    torch.cuda.synchronize()
+    return totals
+
+
 OFFLINE_REPEATABLE = {"scale": phase_scale, "scaling_tools": phase_scaling_tools}
 
 
@@ -2470,7 +2739,7 @@ def small_repeats(n, names, knn=None, smi=None):
 def run_phases(knn, names, smi):
     """Only the named phases (``icl``, ``compact``, ``train_depth``, ``oft``,
     ``scale``, ``scaling_tools``, ``recover``, ``demo``, ``batched``,
-    ``sharded``, ``small:CONFIG``),
+    ``sharded``, ``sequence``, ``small:CONFIG``),
     each checked as in the full run; no kernels line and no result line."""
     stats = {}
     offline = {"train_depth": lambda: phase_train_depth(knn, stats, smi),
@@ -2484,6 +2753,8 @@ def run_phases(knn, names, smi):
             phase_batched(knn, stats, smi)
         elif name == "sharded":
             phase_sharded(knn, stats)
+        elif name == "sequence":
+            phase_sequence(knn, stats, smi)
         elif name == "icl":
             phase_icl(knn, stats, smi)
         elif name == "compact":
@@ -2591,7 +2862,9 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
     # 12. several sequences at once on the card; the map-sharded search
     batched_launches = phase_batched(knn, stats, smi)
     sharded_launches = phase_sharded(knn, stats)
-    # 13. small input, card vs CPU
+    # 13. the whole-sequence program against the loop
+    sequence_launches = phase_sequence(knn, stats, smi)
+    # 14. small input, card vs CPU
     for config in SMALL_CONFIGS:
         phase_small(config)
 
@@ -2622,6 +2895,7 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
                         "recover_launches": recover_launches[key],
                         "batched_launches": batched_launches[key],
                         "sharded_launches": sharded_launches[key],
+                        "sequence_launches": sequence_launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                         "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),

@@ -24,7 +24,11 @@ from e2eslam_tpu_torch.viz.pointcloud_export import export_ply, plotly_figure
 
 
 class Demo(OnlineAdaptation):
-    """Online adaptation that snapshots the map after every keyframe fusion."""
+    """Online adaptation that snapshots the map after every keyframe fusion
+    (a host copy per keyframe: the per-keyframe loop, never the
+    whole-sequence program)."""
+
+    use_sequence_program = False
 
     def __init__(self, config, **kwargs):
         super().__init__(config, **kwargs)

@@ -3,7 +3,11 @@
 ``python -m e2eslam_tpu_torch.apps.online_adaption --config_path
 configs/config.yaml --name run1`` -- keyframe selection, per-pair depth
 refinement (PFT), PointFusion into the global map, and the summary the JAX
-app prints. Runs on CUDA unless ``SETTINGS.device`` is ``cpu``.
+app prints, with whether the run took the whole-sequence program, the CUDA
+graphs it captured and their capture time (``DEBUG.print_metrics: false``
+takes the program where the config allows it; the per-step prints of
+``print_metrics: true`` take the per-keyframe loop). Runs on CUDA unless
+``SETTINGS.device`` is ``cpu``.
 ``--set SECTION.key=value`` overrides a setting, for example the ICL-NUIM
 configuration on the repository's 10-frame sequence with a checkpoint
 directory of one's own::
@@ -30,6 +34,8 @@ def main(argv=None):
     print(f"mean abs_rel: {result['mean_abs_rel']:.5f}")
     print(f"ate: {result['ate']:.5f}  rpe: {result['rpe']:.5f}")
     print(f"refinement steps/sec (adapt+fuse): {result['steps_per_sec']:.3f}")
+    print(f"sequence_program: {result['sequence_program']}  graphs: {result['graphs']}  "
+          f"capture_s: {result['capture_s']:.3f}")
     return result
 
 

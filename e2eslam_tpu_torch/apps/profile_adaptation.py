@@ -4,21 +4,30 @@
         [--config_path configs/config.yaml]
         [--workload config|chamfer|flagship|gradicp|compact|icl|batched]
         [--set SECTION.key=value ...] [--runs 1] [--deterministic]
-        [--profile_frames 12] [--n_seq 1 2 4] [--out DIR]
+        [--profile_frames 12] [--loop keyframe|sequence ...] [--n_seq 1 2 4]
+        [--out DIR]
 
 Three runs of the config's main path, each on a fresh runner with the same
-seeded weights, after the kernels are built:
+seeded weights, after the kernels are built, for each way of running it
+that ``--loop`` names (default: the runner's own choice): ``sequence`` the
+whole-sequence program (``use_sequence_program`` on; on the card its warm
+events replay one CUDA graph), ``keyframe`` the per-keyframe loop
+(``use_sequence_program`` off); two ways alternate, run by run:
   1. a warm-up of 4 frames (cuDNN heuristics, allocator, kernel loading);
   2. the config as it stands (``DEMO.sequence_length`` frames), ``--runs``
      times, each timed with a synchronised host clock: steps/s, mean
      abs_rel, map points, KNN launches (the spread of identical runs;
      ``--deterministic``: with deterministic algorithms and cuDNN, whose
-     runs repeat);
+     runs repeat); with the program, also steps/s without the capture
+     time (``steps_per_sec_no_capture``);
   3. ``--profile_frames`` frames (at most the workload's own) under
      ``torch.profiler``: device time by kernel family, the device's
      launches (kernels and copies), and the device's idle share over the
      adaptation loop (1 - kernel time / the run's own clock, profiler
-     overhead included).
+     overhead included), the host's launch calls and the device's kernels
+     per keyframe event, and the host synchronisations per event
+     (``torch.cuda.set_sync_debug_mode("warn")`` over the profiled run, as
+     ``chip_smoke.py::host_syncs_per_event`` counts them).
 ``--workload chamfer`` applies tools/bench_exact.py's TUM chamfer row to
 the config (``chamfer_config``), ``--workload flagship`` the JAX package's
 benchmark configuration (``flagship_config``: index fusion and
@@ -271,11 +280,26 @@ def _config(path, workload="config", frames=None, overrides=(), weights_dir=None
     return cfg
 
 
-def _run(cfg):
+LOOPS = {"sequence": True, "keyframe": False}
+# The CUDA runtime's launch calls, as the profiler names them.
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _run(cfg, loop=None):
     for k in knn_ops.KERNELS:
         k.launches = 0
-    result = OnlineAdaptation(cfg).run(verbose=False)
+    runner = OnlineAdaptation(cfg)
+    if loop is not None:
+        runner.use_sequence_program = LOOPS[loop]
+    result = runner.run(verbose=False)
+    busy_s = result["elapsed_s"] - result["capture_s"]
     return {
+        "loop": loop,
+        "sequence_program": result["sequence_program"],
+        "graphs": result["graphs"],
+        "capture_s": result["capture_s"],
+        "steps_per_sec_no_capture": result["refine_steps"] / busy_s if busy_s > 0 else 0.0,
         "frames": int(cfg.DEMO.sequence_length),
         "keyframes": result["num_keyframes"],
         "refine_steps": result["refine_steps"],
@@ -298,6 +322,7 @@ def main(argv=None):
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--profile_frames", type=int, default=12)
+    p.add_argument("--loop", choices=sorted(LOOPS), nargs="+", default=[None])
     p.add_argument("--n_seq", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
@@ -330,27 +355,57 @@ def main(argv=None):
     def config(frames=None):
         return _config(args.config_path, args.workload, frames, args.set, weights)
 
-    _run(config(4))  # warm-up
+    for loop in args.loop:
+        _run(config(4), loop)  # warm-up
     out["timed"] = []
     for _ in range(args.runs):
-        torch.cuda.reset_peak_memory_stats()
-        timed = _run(config())
-        timed["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        out["timed"].append(timed)
-        print(json.dumps({"timed": timed}), flush=True)
+        for loop in args.loop:
+            torch.cuda.reset_peak_memory_stats()
+            timed = _run(config(), loop)
+            timed["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            out["timed"].append(timed)
+            print(json.dumps({"timed": timed}), flush=True)
+    out["profiled"] = []
+    for loop in args.loop:
+        profiled = _profiled(config, args.profile_frames, loop)
+        out["profiled"].append(profiled)
+        print(json.dumps({"profiled": profiled}), flush=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "profile.json"), "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
+def _profiled(config, profile_frames, loop):
+    """One run under ``torch.profiler`` and the sync-debug warnings: the
+    device's time by kernel family, its idle share, launches and host
+    synchronisations per keyframe event."""
+    import warnings
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     # At most the workload's own frames (the icl sequence holds 10).
-    frames = min(args.profile_frames, int(config().DEMO.sequence_length))
-    with torch.profiler.profile(activities=acts) as prof:
-        profiled = _run(config(frames))
+    frames = min(profile_frames, int(config().DEMO.sequence_length))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                profiled = _run(config(frames), loop)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
     # The run's own clock starts after the runner is built and the frames
     # are rendered, so the idle share is over the adaptation loop alone.
     wall_ms = profiled["elapsed_s"] * 1e3
     fam, kernels = {}, []
     busy_us = 0.0
     launches = 0
+    host_launches = 0
+    events = max(profiled["keyframes"], 1)
     for evt in prof.key_averages():
+        if evt.key in HOST_LAUNCHES:
+            host_launches += evt.count
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
@@ -366,17 +421,15 @@ def main(argv=None):
         "wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_launches": launches,
+        "device_launches_per_event": launches / events,
+        "host_launch_calls_per_event": host_launches / events,
+        "host_syncs": syncs,
+        "host_syncs_per_event": syncs / events,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
         "device_ms_by_family": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms_count": kernels[:15],
     })
-    out["profiled"] = profiled
-    print(json.dumps({"profiled": profiled}), flush=True)
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile.json"), "w") as f:
-            json.dump(out, f, indent=1)
-    return out
+    return profiled
 
 
 if __name__ == "__main__":

@@ -3,13 +3,14 @@
 The product workload (reference ``online_adaption.py``, class ``SLAM``):
 stream a sequence, select keyframes by camera-center distance, run R
 refinement steps of the depth network per keyframe window, then fuse the
-newest keyframe pair into the global map. One eager loop over keyframes:
-the JAX package's per-keyframe loop (``adaptation.py:225-377``), which also
-serves its 3-frame windows, its sort cache and its cross-keyframe seeds.
-The flagship configuration (index fusion and association) runs the same
-loop where the JAX runner takes its whole-sequence program
-(``adaptation.py:186-223``); the runs agree to the tolerances of
-``tests/test_torch_flagship.py``.
+newest keyframe pair into the global map. Two ways, as in the JAX runner
+(``adaptation.py:186-223``): the whole-sequence program
+(``RefinementEngine.process_sequence``: the map's count on the device, no
+host read before the end, on a card the warm events replayed as one CUDA
+graph) wherever ``sequence_program_blocker`` finds nothing in its way, and
+otherwise an eager loop over keyframes, the JAX package's per-keyframe loop
+(``adaptation.py:225-377``), which also serves 3-frame windows, the sort
+cache and its cross-keyframe seeds and the verbose per-step prints.
 
 Around the loop: the network's weights come from the reference's files
 (``MODEL.weights_init_encoder: imagenet``, ``MODEL.use_pretrained_models``)
@@ -22,6 +23,7 @@ projective); ``MODEL.compact_voxel`` compacts the final map.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -31,7 +33,13 @@ import torch
 from e2eslam_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from e2eslam_tpu_torch.data.pipeline import load_batch, make_dataset
 from e2eslam_tpu_torch.device import resolve_device, set_full_fp32
-from e2eslam_tpu_torch.engine.refine import PairBatch, RefinementEngine, validate_config
+from e2eslam_tpu_torch.engine.optim import device_schedule_supported
+from e2eslam_tpu_torch.engine.refine import (
+    PairBatch,
+    RefinementEngine,
+    compact_bucket,
+    validate_config,
+)
 from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, regather_sorted
 from e2eslam_tpu_torch.losses.trajectory import (
     absolute_trajectory_error,
@@ -41,12 +49,33 @@ from e2eslam_tpu_torch.models.convert import load_depth_weights
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
 from e2eslam_tpu_torch.slam.compact import compact_map
 
-BUCKET_QUANTUM = 1 << 20
 
-
-def _quantized(count: int, capacity: int) -> int:
-    """``count`` rounded up to BUCKET_QUANTUM rows, at most ``capacity``."""
-    return min(-(-max(count, 1) // BUCKET_QUANTUM) * BUCKET_QUANTUM, capacity)
+def sequence_program_blocker(config, *, verbose: bool, use_sequence_program: bool = True):
+    """Why a run takes the per-keyframe loop instead of the whole-sequence
+    program, decided from the config before the run; None: the program
+    runs. The JAX runner's conditions (``adaptation.py:191-195``): the
+    program is on, the run is not verbose (its per-step prints read every
+    step), 2-frame windows, an association other than the voxel hash (which
+    the loop rebuilds on the host) and at least one refinement step. Then
+    the settings the port's program cannot yet replay as a CUDA graph,
+    taken by the loop on every device so that CPU and card agree:
+    ``MODEL.active_window`` (the window's start follows the count),
+    torch's SGD (it reads a tensor learning rate to the host) and the
+    observability outputs (``VIZ.log_gradients``, ``VIZ.tensorboard``,
+    ``DEBUG.plot``: per-step dicts the program does not stack)."""
+    M, L, O = config.MODEL, config.LOSS, config.OPTIMIZATION
+    checks = (
+        (not use_sequence_program, "use_sequence_program is off"),
+        (verbose, "verbose run"),
+        (int(config.DEMO.get("sequence_length_refinement") or 2) != 2, "F != 2 windows"),
+        (str(L.get("knn_impl", "brute")) == "voxel", "LOSS.knn_impl: voxel"),
+        (int(O.refinement_steps) <= 0, "no refinement steps"),
+        (bool(M.get("active_window")), "MODEL.active_window"),
+        (not device_schedule_supported(config), f"OPTIMIZATION.optimizer: {O.optimizer}"),
+        (bool(config.VIZ.get("log_gradients") or config.VIZ.get("tensorboard")
+              or config.DEBUG.get("plot")), "observability outputs"),
+    )
+    return next((why for blocked, why in checks if blocked), None)
 
 
 def _camera_centers(poses: np.ndarray) -> np.ndarray:
@@ -136,7 +165,7 @@ class KeyframeViews:
             return global_map, False
         before = global_map.count
         global_map = self.engine.compact_now(global_map, est_pose, K,
-                                             bucket=_quantized(before, self.capacity))
+                                             bucket=compact_bucket(before, self.capacity))
         self._sort_cache = None
         self.compactions.append({"keyframe": k, "frame": frame, "before": before,
                                  "after": global_map.count})
@@ -189,7 +218,13 @@ class OnlineAdaptation(KeyframeViews):
     of the last F keyframes, oldest first, with the frame at index 1 as the
     target (F = 3: the middle one, reference demo.py:437-452); fusion always
     takes the newest pair (prev, frame).
+
+    ``use_sequence_program`` (default True, as in the JAX runner): whether a
+    run whose config allows it (``sequence_program_blocker``) takes the
+    whole-sequence program.
     """
+
+    use_sequence_program = True
 
     def __init__(self, config, *, dataset=None, device=None, model=None):
         validate_config(config)
@@ -238,15 +273,58 @@ class OnlineAdaptation(KeyframeViews):
 
         engine = self.engine
         global_map = engine.make_empty_map()
+        self._views_start()
+        program = sequence_program_blocker(
+            cfg, verbose=verbose, use_sequence_program=self.use_sequence_program) is None
+        self._sync()
+        t_start = time.perf_counter()
+        if program:
+            global_map, keyframes, metrics, est, seeded_at, info = self._run_program(
+                global_map, colors, gt_depths, K, poses, schedule)
+        else:
+            global_map, keyframes, metrics, est, seeded_at = self._run_loop(
+                global_map, colors, gt_depths, K, poses, schedule, verbose)
+            info = {"graphs": 0, "capture_s": 0.0}
+        self._sync()
+        elapsed = time.perf_counter() - t_start
+        return self._summary(global_map, keyframes, metrics, est, seeded_at, elapsed, poses_np,
+                             intrinsics, verbose, program, info)
+
+    def _run_program(self, global_map, colors, gt_depths, K, poses, schedule):
+        """The run through ``RefinementEngine.process_sequence``: one read of
+        the stacked metrics, poses and map count at the end."""
+        engine = self.engine
+        prev_idx = [p for p, _ in schedule]
+        keyframes = [c for _, c in schedule]
+        global_map, stacked, est_t, info = engine.process_sequence(
+            global_map, colors, gt_depths, K, poses, prev_idx, keyframes)
+        names = sorted(stacked)
+        table = (torch.stack([stacked[n].double() for n in names]).cpu().numpy() if names
+                 else np.zeros((0, len(keyframes))))
+        metrics = [{n: float(table[i, e]) for i, n in enumerate(names)}
+                   for e in range(len(keyframes))]
+        kf = global_map.kf_counter
+        global_map = dataclasses.replace(global_map, count=int(global_map.count),
+                                         kf_counter=None if kf is None else int(kf))
+        for c in info["compactions"]:
+            c["frame"] = keyframes[c["keyframe"]]
+        self.compactions = info["compactions"]
+        # Every event sorts the whole buffer afresh (brute path); every warm
+        # event past the first takes the previous event's final KNN indices.
+        if self._bucketed_sort and keyframes:
+            self.sorted_at = list(range(len(keyframes)))
+        seeded_at = list(range(1, len(keyframes))) if engine.warm else []
+        return global_map, keyframes, metrics, est_t.cpu().numpy(), seeded_at, info
+
+    def _run_loop(self, global_map, colors, gt_depths, K, poses, schedule, verbose):
+        """The per-keyframe loop (the JAX runner's ``adaptation.py:225-377``)."""
+        engine = self.engine
         keyframes: List[int] = []
         per_pair: List[Dict] = []
         est_poses = []
         kf_hist = [0]  # processed keyframes (frame 0: the first prev)
-        self._views_start()
         last_kc = None
         seeded_at = []
-        self._sync()
-        t_start = time.perf_counter()
         for k, (prev, frame) in enumerate(schedule):
             window = window_frames(kf_hist, frame, self.F_ref)
             pair = self._batch(colors, gt_depths, K, poses, window)
@@ -274,18 +352,20 @@ class OnlineAdaptation(KeyframeViews):
             keyframes.append(frame)
             per_pair.append(steps[-1] if steps else None)
             est_poses.append(est_pose)
-        self._sync()
-        elapsed = time.perf_counter() - t_start
+        metrics = [None if m is None else {k: float(v) for k, v in m.items()}
+                   for m in per_pair]
+        est = (torch.stack(est_poses).cpu().numpy() if est_poses
+               else np.zeros((0, 4, 4), np.float32))
+        return global_map, keyframes, metrics, est, seeded_at
+
+    def _summary(self, global_map, keyframes, metrics, est, seeded_at, elapsed, poses_np,
+                 intrinsics, verbose, program, info) -> Dict:
+        cfg, engine = self.config, self.engine
         total_steps = engine.refinement_steps * len(keyframes)
         if cfg.MODEL.get("save_checkpoint"):
             save_checkpoint(cfg.MODEL.save_checkpoint, engine.model, engine.optimizer,
                             meta={"keyframes": len(keyframes), "refine_steps": total_steps})
-
-        metrics = [None if m is None else {k: float(v) for k, v in m.items()}
-                   for m in per_pair]
         abs_rels = [m["abs_rel"] for m in metrics if m is not None]
-        est = (torch.stack(est_poses).cpu().numpy() if est_poses
-               else np.zeros((0, 4, 4), np.float32))
         gt_kf = poses_np[0][np.asarray(keyframes, dtype=np.int64)]
         if len(keyframes) >= 2:
             ate = absolute_trajectory_error(gt_kf, est)
@@ -319,6 +399,11 @@ class OnlineAdaptation(KeyframeViews):
             "sorted_at": self.sorted_at,
             "seeded_at": seeded_at,
             "compactions": self.compactions,
+            # The whole-sequence program: whether it ran, the CUDA graphs it
+            # captured and their capture time (inside elapsed_s).
+            "sequence_program": program,
+            "graphs": info["graphs"],
+            "capture_s": info["capture_s"],
         }
         if compacted is not None:
             result["map_points_compacted"] = compacted

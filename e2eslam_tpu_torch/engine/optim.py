@@ -24,6 +24,15 @@ optax's staircase decay, ExponentialLR its continuous one
 takes the milestones as a dict: a repeated milestone decays once, where
 torch's ``MultiStepLR`` would decay twice.
 
+The whole-sequence program replays its events as a CUDA graph, where a
+host schedule would be frozen at capture. ``DeviceSchedule`` runs the same
+schedule on the device: each param group's ``lr`` is a 0-d tensor that
+``set_lr`` recomputes from a device update count before each update
+(``lr_factor``: ``_lr_lambda`` in tensor ops, as optax's schedule reads
+its count), with torch's Adam in its ``capturable`` form and the port's
+RMSprop and Adagrad scaling by the tensor. torch's SGD reads a tensor
+learning rate to the host, so SGD stays on the per-keyframe loop.
+
 ``OPTIMIZATION.fused_update`` (the JAX package's ``fuse_update``: the
 optimizer over one flattened parameter vector) changes how the update runs,
 not what it computes: the element-wise formula is the per-tensor one. Here
@@ -102,6 +111,16 @@ class RMSprop(_ElementwiseOptimizer):
         scale = torch._foreach_add(nus, eps)
         torch._foreach_rsqrt_(scale)
         torch._foreach_mul_(scale, grads)
+        _apply(params, scale, lr)
+
+
+def _apply(params, scale, lr) -> None:
+    """``p <- p - lr * scale``; a tensor ``lr`` (``DeviceSchedule``'s) is
+    multiplied in on the device, never read by the host."""
+    if isinstance(lr, torch.Tensor):
+        torch._foreach_mul_(scale, lr)
+        torch._foreach_sub_(params, scale)
+    else:
         torch._foreach_add_(params, scale, alpha=-lr)
 
 
@@ -129,7 +148,7 @@ class Adagrad(_ElementwiseOptimizer):
         torch._foreach_rsqrt_(scale)
         scale = [torch.where(s > 0, r, torch.zeros_like(r)) for s, r in zip(sums, scale)]
         torch._foreach_mul_(scale, grads)
-        torch._foreach_add_(params, scale, alpha=-lr)
+        _apply(params, scale, lr)
 
 
 def _lr_lambda(opt):
@@ -147,6 +166,78 @@ def _lr_lambda(opt):
     if kind == "ExponentialLR":
         return lambda count: gamma ** count
     raise ValueError(f"OPTIMIZATION.schedular {kind!r}: one of {SCHEDULES}")
+
+
+def lr_factor(opt, count: torch.Tensor) -> torch.Tensor:
+    """``_lr_lambda(opt)`` on a device update count: a float64 0-d tensor
+    from device ops alone (capturable in a CUDA graph); equal to the host
+    factor for every count."""
+    kind = opt.get("schedular", None)
+    gamma = float(opt.get("schedular_gamma", 0.5))
+    c = count.to(torch.float64)
+    if kind in (None, "none"):
+        return torch.ones_like(c)
+    if kind == "StepLR":
+        return gamma ** torch.floor(c / int(opt.schedular_step_size))
+    if kind == "MultiStepLR":
+        passed = sum((c >= m).to(torch.float64) for m in sorted({int(m) for m in
+                                                                opt.schedular_milestones}))
+        return gamma ** (passed + torch.zeros_like(c))
+    if kind == "ExponentialLR":
+        return gamma ** c
+    raise ValueError(f"OPTIMIZATION.schedular {kind!r}: one of {SCHEDULES}")
+
+
+def device_schedule_supported(config) -> bool:
+    """Whether the optimizer takes ``DeviceSchedule``'s tensor learning
+    rate without a host read: every one but torch's SGD."""
+    return config.OPTIMIZATION.optimizer != "SGD"
+
+
+class DeviceSchedule:
+    """The schedule of ``make_optimizer``'s ``LambdaLR`` on the device, for
+    updates that a CUDA graph replays. While entered, each param group's
+    ``lr`` is a float32 0-d tensor on the device and torch's Adam runs
+    ``capturable`` (its step counts on the device); ``set_lr`` writes
+    ``base_lr * lr_factor(count)`` into it, ``count`` the device update
+    count (the host scheduler's ``last_epoch`` on entry), and ``stepped``
+    adds one. ``exit`` reads the count once and hands the schedule back to
+    the host scheduler and the groups their float learning rates."""
+
+    def __init__(self, config, optimizer, scheduler, device):
+        self.opt = config.OPTIMIZATION
+        self.optimizer, self.scheduler = optimizer, scheduler
+        self.base = list(scheduler.base_lrs)
+        self.count = torch.full((), int(scheduler.last_epoch), dtype=torch.int64, device=device)
+        self.lrs = [torch.full((), float(g["lr"]), dtype=torch.float32, device=device)
+                    for g in optimizer.param_groups]
+        for g, lr in zip(optimizer.param_groups, self.lrs):
+            g["lr"] = lr
+            if "capturable" in g:
+                g["capturable"] = device.type == "cuda"
+        # Adam keeps a host step count unless capturable or fused.
+        for st in optimizer.state.values():
+            step = st.get("step")
+            if isinstance(step, torch.Tensor) and step.device != device:
+                st["step"] = step.to(device=device, dtype=torch.float32)
+
+    def set_lr(self) -> None:
+        factor = lr_factor(self.opt, self.count)
+        for lr, base in zip(self.lrs, self.base):
+            lr.copy_(factor * base)
+
+    def stepped(self) -> None:
+        self.count.add_(1)
+
+    def exit(self) -> None:
+        n = int(self.count)
+        lam = _lr_lambda(self.opt)
+        self.scheduler.last_epoch = n
+        self.scheduler._last_lr = [base * lam(n) for base in self.base]
+        for g, lr in zip(self.optimizer.param_groups, self.scheduler._last_lr):
+            g["lr"] = lr
+            if "capturable" in g:
+                g["capturable"] = False
 
 
 def make_optimizer(config, params):

@@ -34,8 +34,17 @@ Randomness (``supervise_depth``'s sampler, the tie-break noise of
 has no torch counterpart, so those draws match the JAX package's in
 distribution only.
 
-Eager PyTorch needs no counterpart of the JAX whole-keyframe and
-whole-sequence programs; the engine is a plain per-step loop.
+The whole-sequence program (``process_sequence``, the JAX engine's
+``_make_process_sequence``, refine.py:1277-1405) runs a run's whole keyframe
+schedule, E events of R PFT steps and fusion, with no read from the device
+to the host: the map's count, the cross-keyframe KNN cache, the learning
+rate and each event's metrics stay on the device. On the CPU its events run
+eagerly. On a CUDA card the first two run eagerly on a side stream (they
+set up cuDNN, autograd and the optimizer's state), the body of one warm
+event is captured once as a CUDA graph, and events 2 to E-1 are its
+replays, fed their frame indices from pinned host memory; periodic
+compaction runs eagerly between replays. Every KNN launch inside the graph
+reads its valid counts on the device (``ops/knn.py``).
 
 Beside the PFT step, the offline apps' modes (``refine.py:1410-1537``):
 output fine-tuning (``oft_step``, ``oft_window``: Adam on the depth maps
@@ -48,7 +57,9 @@ activation gradients, the debug images) and the inference forward
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -59,7 +70,7 @@ from e2eslam_tpu_torch.core.depth import disp_to_depth, indoor_disp_to_depth
 from e2eslam_tpu_torch.core.projection import backproject, project
 from e2eslam_tpu_torch.core.sampling import grid_sample
 from e2eslam_tpu_torch.core.se3 import se3_inverse, transform_points
-from e2eslam_tpu_torch.engine.optim import make_optimizer
+from e2eslam_tpu_torch.engine.optim import DeviceSchedule, make_optimizer
 from e2eslam_tpu_torch.losses.metrics import depth_metrics
 from e2eslam_tpu_torch.losses.photometric import photometric_loss
 from e2eslam_tpu_torch.losses.points import knn_points_loss, texture_gate
@@ -71,7 +82,7 @@ from e2eslam_tpu_torch.losses.regularizers import (
     sparse_sampling,
 )
 from e2eslam_tpu_torch.models.decoders import decoder_tap_shapes
-from e2eslam_tpu_torch.ops.knn import knn
+from e2eslam_tpu_torch.ops.knn import is_device_count, knn
 from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, morton_codes, sort_map_points
 from e2eslam_tpu_torch.ops.voxel_knn import build_voxel_index, voxel_knn
 from e2eslam_tpu_torch.slam.compact import compact_map, compact_map_projective
@@ -82,7 +93,7 @@ from e2eslam_tpu_torch.slam.fusion import (
     projective_nn,
 )
 from e2eslam_tpu_torch.slam.odometry import point_to_plane_icp
-from e2eslam_tpu_torch.slam.pointclouds import MapState, empty_map
+from e2eslam_tpu_torch.slam.pointclouds import MapState, empty_map, on_device
 from e2eslam_tpu_torch.slam.rgbd import build_frame, normal_map
 from e2eslam_tpu_torch.slam.slam import PointFusion
 
@@ -106,6 +117,14 @@ class PairBatch(NamedTuple):
 
 
 KNN_IMPLS = ("brute", "index", "projective", "voxel")
+
+COMPACT_QUANTUM = 1 << 20  # compaction's bucket ladder (refine.py:1317-1349)
+
+
+def compact_bucket(count: int, capacity: int) -> int:
+    """The rows a compaction pass runs over: ``count`` rounded up to
+    COMPACT_QUANTUM rows, at most ``capacity`` (all valid rows live there)."""
+    return min(-(-max(count, 1) // COMPACT_QUANTUM) * COMPACT_QUANTUM, capacity)
 
 
 REFINEMENTS = ("PFT", "OFT", "SCALE")
@@ -181,6 +200,15 @@ def masked_point_loss(pts: Tensor, nn_pts: Tensor, w: Tensor, scale: Optional[Te
     return d2.sum() / wsum
 
 
+def empty_map_gate(count, dtype=torch.float32):
+    """The 3D losses' empty-map gate: 1 when the map holds a point, else 0
+    (a python float for an int count; a 0-d tensor, with no host read, for
+    a device count)."""
+    if is_device_count(count):
+        return (count > 0).to(dtype)
+    return 1.0 if count > 0 else 0.0
+
+
 class OFTState(NamedTuple):
     """Output fine-tuning's variable and its optimizer: the depth maps
     ``[F, H, W, 1]`` (a leaf that requires grad) and a fresh optimizer and
@@ -248,6 +276,13 @@ class RefinementEngine:
         seed = config.SETTINGS.get("seed")
         self.generator = torch.Generator(device=device).manual_seed(
             1 if seed is None else int(seed))
+        # The device learning-rate schedule while the whole-sequence program
+        # runs on a card (None: the host scheduler steps).
+        self._schedule: Optional[DeviceSchedule] = None
+        # ``torch.cuda.set_sync_debug_mode`` around each replay of the
+        # program and its input copies ("warn" or "error": a check that the
+        # warm events never synchronise the host); None leaves it alone.
+        self.replay_sync_mode: Optional[str] = None
         # The depth regularizer's reference: the step-0 post-scaling depth
         # of the current keyframe (refine.py:918-925; the reference
         # snapshots pre-scaling depth, the JAX package compares like with
@@ -474,7 +509,7 @@ class RefinementEngine:
         mstride = int(L.get("three3d_map_stride", 1) or 1)
         sorted_map = isinstance(map_index, SortedMap)
         map_pts = (map_index.points if sorted_map else map_state.points)[::mstride].detach()
-        count = map_state.count
+        count = map_state.count  # an int, or a device tensor (never read here)
         map_count = -(-count // mstride)
         q_sg = pts.detach()
         knn_init = knn_init or {}
@@ -502,10 +537,10 @@ class RefinementEngine:
         # Empty-map gate: the reference skips the 3D losses on the first
         # keyframe; the KNN then returns index 0 (finite) and the gate
         # zeroes the loss.
-        gate = 1.0 if count > 0 else 0.0
+        gate = empty_map_gate(count, pts.dtype)
         if self.knn_impl in ("index", "projective"):
             return self._projective_terms(frame, live, pts, msk, tex, debias, T_rel, map_state,
-                                          map_pts[:map_count], gate, stride), cache
+                                          map_pts, map_count, gate, stride), cache
         idx_ab = None
         if L.three3d_loss or L.get("knn_points"):
             if self.knn_impl == "voxel" and map_index is not None:
@@ -555,7 +590,8 @@ class RefinementEngine:
         return terms, cache
 
     def _projective_terms(self, frame, live, pts, msk, tex, debias, T_rel,
-                          map_state: MapState, map_pts: Tensor, gate: float, stride: int) -> Dict:
+                          map_state: MapState, map_pts: Tensor, map_count, gate,
+                          stride: int) -> Dict:
         """The 3D losses' projective branches (refine.py:622-688, :726-783):
         each query pixel's neighbour is the map slot ``index_nn`` reads for
         it (``knn_impl: index``; ``LOSS.index_assoc_levels`` levels) or the
@@ -565,8 +601,9 @@ class RefinementEngine:
         farther than ``three3d_dist_gate`` and weights each by its map
         point's confidence (``three3d_conf_weight``: min(conf, 4) / 4). The
         chamfer's a->b reuses that association; its b->a pairs each valid
-        map row of ``map_pts`` with the predicted point at the pixel it
-        projects to in the target camera: gathers only, no KNN."""
+        map row (the first ``map_count`` of ``map_pts``; all rows, weighted
+        by validity, for a device count) with the predicted point at the
+        pixel it projects to in the target camera: gathers only, no KNN."""
         L = self.config.LOSS
         index = self.knn_impl == "index"
         if index:
@@ -591,9 +628,14 @@ class RefinementEngine:
         if L.get("chamfer_distance"):
             d_ab = masked_point_loss(pts, nn, w_found)
             H, W = frame.depth.shape[:2]
+            if not is_device_count(map_count):
+                map_pts = map_pts[:map_count]
             q_pix, in_frame = _project_pixels(map_pts, frame.pose, frame.intrinsics, H, W)
             q_pt = transform_points(T_rel, live.points).index_select(0, q_pix)
             w_ba = in_frame.to(pts.dtype) * live.mask.index_select(0, q_pix)
+            if is_device_count(map_count):
+                w_ba = w_ba * (torch.arange(map_pts.shape[0], device=map_pts.device)
+                               < map_count).to(pts.dtype)
             d_ba = masked_point_loss(map_pts, q_pt, w_ba)
             terms["chamfer"] = (gate * (d_ab + d_ba), 0.5 * float(L.chamfer_weight))
         return terms
@@ -601,15 +643,22 @@ class RefinementEngine:
     def _tail_seed(self, q: Tensor, map_state: MapState, map_index: SortedMap) -> Tensor:
         """Step-0 warm-start candidates from the map's newest rows: a KNN
         against a strided view of the last 2^18 appended rows, translated
-        into sorted-view positions (refine.py:544-578)."""
+        into sorted-view positions (refine.py:544-578). A device count
+        gathers the rows ``start + ts * i``; a host one slices them."""
         raw = map_state.points.detach()
         N = raw.shape[0]
         count = map_state.count
         Wt = min(N, 1 << 18)
-        start = min(max(count - Wt, 0), N - Wt)
         ts = int(self.config.LOSS.get("knn_seed_stride", 4) or 1)
-        n_tail = (min(count, Wt) + ts - 1) // ts
-        _, tidx = knn(q, raw[start:start + Wt:ts], n_tail)
+        if is_device_count(count):
+            start = (count - Wt).clamp(min=0, max=N - Wt)
+            rows = start + torch.arange(-(-Wt // ts), device=raw.device) * ts
+            n_tail = (count.clamp(max=Wt) + ts - 1) // ts
+            _, tidx = knn(q, raw.index_select(0, rows), n_tail)
+        else:
+            start = min(max(count - Wt, 0), N - Wt)
+            n_tail = (min(count, Wt) + ts - 1) // ts
+            _, tidx = knn(q, raw[start:start + Wt:ts], n_tail)
         cand = (start + tidx.long() * ts).clamp(0, N - 1)
         return map_index.inv_perm[cand]
 
@@ -658,7 +707,8 @@ class RefinementEngine:
                                    device=pair.colors.device,
                                    requires_grad=True)
                     for k, shape in decoder_tap_shapes(F, H, W).items()}
-        self.optimizer.zero_grad(set_to_none=True)
+        # The program's replays keep the gradients' buffers: zeroed, not freed.
+        self.optimizer.zero_grad(set_to_none=self._schedule is None)
         disp, depth = self.forward_depths(pair.colors, taps=taps)
         loss, aux, depth, outputs = self.step_loss(pair, disp, depth, map_state, map_index,
                                                    knn_init, thread_knn, step)
@@ -672,8 +722,13 @@ class RefinementEngine:
             # (refine.py:974-977, :999-1005).
             grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                      for n, p in self.model.named_parameters()}
-        self.optimizer.step()
-        self.scheduler.step()
+        if self._schedule is None:
+            self.optimizer.step()
+            self.scheduler.step()
+        else:
+            self._schedule.set_lr()
+            self.optimizer.step()
+            self._schedule.stepped()
         knn_cache = aux.pop("_knn_idx", None)
         metrics = self.step_metrics(pair, depth, loss, aux)
         if obs_images:
@@ -921,3 +976,174 @@ class RefinementEngine:
             steps.append(metrics)
         view, est_pose = self.fuse_pair(fuse_batch or pair, view, fuse_prev=fuse_prev)
         return dataclasses.replace(view, data=map_state.data), steps, est_pose, kc
+
+    # ------------------------------------------------------------------
+    # the whole-sequence program
+    # ------------------------------------------------------------------
+    def _sequence_event(self, seq, K: Tensor, pair_i: Tensor, ev_i: Tensor, ms: MapState,
+                        carry: Dict, out: Dict, est: Tensor, *, fuse_prev: bool) -> None:
+        """One event of the whole-sequence program (JAX refine.py:1361-1394):
+        the pair ``pair_i`` (int64 ``[2]`` on the device: previous and
+        current frame) gathered from the sequence ``seq`` (colors, depths,
+        poses), a fresh Morton sort of the whole buffer, R PFT steps seeded
+        by the previous event's final KNN cache, then fusion. Everything it
+        keeps is written in place: the map ``ms`` (its count and index
+        images), the cache ``carry["kc"]``, the last step's metrics into row
+        ``ev_i`` of ``out``'s ``[E]`` buffers (allocated on the first event)
+        and the estimated pose into ``est[ev_i]``. So a CUDA graph of it
+        replays against the same tensors."""
+        colors, gt_depths, poses = seq
+        pair = PairBatch(colors=colors.index_select(0, pair_i),
+                         gt_depths=gt_depths.index_select(0, pair_i), intrinsics=K,
+                         poses=poses.index_select(0, pair_i))
+        # The whole buffer's sort: the seeds it invalidates are re-scored
+        # (refine.py:1375-1380).
+        map_index = self.build_map_index(ms)
+        new, steps, est_pose, kc = self.process_pair(pair, ms, map_index, fuse_prev=fuse_prev,
+                                                     knn_init0=carry.get("kc"))
+        for name, value in steps[-1].items():
+            if name not in out:
+                out[name] = torch.zeros(est.shape[0], dtype=value.dtype, device=value.device)
+            out[name].index_copy_(0, ev_i, value.reshape(1))
+        est.index_copy_(0, ev_i, est_pose[None].to(est.dtype))
+        store_map(ms, new)
+        if kc is not None:
+            if carry.get("kc") is None:
+                carry["kc"] = {k: v.clone() for k, v in kc.items()}
+            else:
+                for k, v in kc.items():
+                    carry["kc"][k].copy_(v)
+
+    def compact_in_place(self, ms: MapState, pose: Tensor, K: Tensor) -> Tuple[int, int]:
+        """The configured compaction pass over the bucket of rows holding the
+        valid ones (``compact_switch``, refine.py:1317-1349), written back
+        into ``ms``'s own tensors. Reads the count before and after to the
+        host. Returns (count before, count after)."""
+        before = int(ms.count)
+        bucket = (compact_bucket(before, ms.data.shape[0])
+                  if bool(self.config.MODEL.get("compact_bucket", True)) else None)
+        new = self.compact_now(ms, pose, K, bucket=bucket)
+        if new.data.data_ptr() != ms.data.data_ptr():
+            ms.data.copy_(new.data)
+        store_map(ms, new)
+        return before, int(ms.count)
+
+    def process_sequence(self, map_state: MapState, colors: Tensor, gt_depths: Tensor,
+                         K: Tensor, poses: Tensor, prev_idx, cur_idx):
+        """The whole keyframe schedule as one program (the JAX engine's
+        ``process_sequence``, refine.py:1277-1405 and :1611-1621): event ``e``
+        refines and fuses the pair ``(prev_idx[e], cur_idx[e])`` of the
+        sequence (``colors``, ``gt_depths``, ``poses`` ``[L, ...]`` on the
+        engine's device); event 0 also fuses its previous frame; the
+        cross-keyframe KNN cache threads through every event; with
+        ``MODEL.compact_period`` P the map is compacted after event ``e``
+        when ``(e + 1) % P == 0``, from that event's estimated camera.
+
+        Nothing is read to the host before the end but compaction's counts.
+        On a CUDA device events 0 and 1 run eagerly on a side stream, one
+        warm event is captured as a CUDA graph and events 2..E-1 replay it
+        (a failed capture raises; nothing falls back to the per-keyframe
+        loop); on the CPU every event runs eagerly. ``map_state`` is updated
+        in place (its count becomes a device tensor).
+
+        Returns (map, metrics ``{name: [E]}`` of each event's last step,
+        estimated poses ``[E, 4, 4]``, info: ``graphs`` captured,
+        ``capture_s``, ``compactions`` ``[{"keyframe", "before",
+        "after"}]``), all on the device but the info."""
+        E = len(prev_idx)
+        dev = self.device
+        cuda = dev.type == "cuda"
+        ms = on_device(map_state)
+        out: Dict[str, Tensor] = {}
+        est = torch.zeros(E, 4, 4, dtype=poses.dtype, device=dev)
+        info = {"graphs": 0, "capture_s": 0.0, "compactions": []}
+        if E == 0:
+            return ms, out, est, info
+        pairs = torch.tensor([[int(p), int(c)] for p, c in zip(prev_idx, cur_idx)],
+                             dtype=torch.int64)
+        events = torch.arange(E, dtype=torch.int64)[:, None]
+        if cuda:
+            pairs, events = pairs.pin_memory(), events.pin_memory()
+        # The graph's inputs: written from pinned memory before each event.
+        pair_i = torch.zeros(2, dtype=torch.int64, device=dev)
+        ev_i = torch.zeros(1, dtype=torch.int64, device=dev)
+        seq = (colors, gt_depths, poses)
+        carry: Dict = {}
+        period = int(self.config.MODEL.get("compact_period", 0) or 0)
+        if cuda:
+            self._schedule = DeviceSchedule(self.config, self.optimizer, self.scheduler, dev)
+        side = torch.cuda.Stream(device=dev) if cuda else None
+        if cuda:
+            side.wait_stream(torch.cuda.current_stream(dev))
+        graph = None
+        try:
+            for e in range(E):
+                warm = cuda and e >= 2
+                ctx = torch.cuda.stream(side) if cuda and not warm else contextlib.nullcontext()
+                with ctx:
+                    if warm and graph is None:
+                        torch.cuda.current_stream(dev).wait_stream(side)
+                        graph = self._capture_event(seq, K, pair_i, ev_i, ms, carry, out, est,
+                                                    info)
+                    if warm:
+                        with _sync_debug(self.replay_sync_mode):
+                            pair_i.copy_(pairs[e], non_blocking=True)
+                            ev_i.copy_(events[e], non_blocking=True)
+                            graph.replay()
+                    else:
+                        pair_i.copy_(pairs[e], non_blocking=True)
+                        ev_i.copy_(events[e], non_blocking=True)
+                        self._sequence_event(seq, K, pair_i, ev_i, ms, carry, out, est,
+                                             fuse_prev=e == 0)
+                    if period and (e + 1) % period == 0:
+                        before, after = self.compact_in_place(ms, est[e], K)
+                        info["compactions"].append({"keyframe": e, "before": before,
+                                                    "after": after})
+            if cuda and graph is None:
+                torch.cuda.current_stream(dev).wait_stream(side)
+        finally:
+            if self._schedule is not None:
+                self._schedule.exit()
+                self._schedule = None
+        return ms, out, est, info
+
+    def _capture_event(self, seq, K, pair_i, ev_i, ms, carry, out, est, info):
+        """Capture one warm event (no fusion of the previous frame) as a CUDA
+        graph; its random draws, if any, from the engine's generator."""
+        L = self.config.LOSS
+        graph = torch.cuda.CUDAGraph()
+        if L.get("supervise_depth") or (L.get("auto_masking") and L.get("min_reprojection")):
+            graph.register_generator_state(self.generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self._sequence_event(seq, K, pair_i, ev_i, ms, carry, out, est, fuse_prev=False)
+        info["capture_s"] += time.perf_counter() - t0
+        info["graphs"] += 1
+        return graph
+
+
+@contextlib.contextmanager
+def _sync_debug(mode: Optional[str]):
+    """``torch.cuda.set_sync_debug_mode(mode)`` inside the block (None: as
+    it is)."""
+    if mode is None:
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def store_map(dst: MapState, src: MapState) -> None:
+    """Write ``src``'s count, keyframe counter, index images and poses into
+    ``dst``'s tensors in place (``src.data`` is ``dst.data``: fusion writes
+    the buffer in place). The second level goes first: it may be the first
+    level's old image."""
+    for name in ("index_image2", "index_pose2", "index_image", "index_pose", "count",
+                 "kf_counter"):
+        d, s = getattr(dst, name), getattr(src, name)
+        if d is not None and d is not s:
+            d.copy_(s)

@@ -184,6 +184,8 @@ struct WalkArgs {
   int* work;  // [n_groups + 1] zeros: per group the shares done, then the queue
   long long* visits;  // [n_groups * max_splits, 3]: per item rows staged, pairs
                       // scored, and of those the pairs another share also scores
+  const int* counts;  // null, or int32 [2] on the device: the valid nq and nr,
+                      // which then replace the host's (the `_dc` kernels)
 };
 
 // A query tile's list: its length and, for the resident list, its first
@@ -517,18 +519,39 @@ __device__ void walk(const WalkArgs& A) {
   }
 }
 
+// Counts on the device (a map whose size the host does not know, as in a
+// replayed CUDA graph): the Pallas kernels' scalar-prefetch nq and nr, read
+// once per block. Each kernel has a second entry, `_dc`, that reads them;
+// the host-count entry compiles as before (the two live counts cost the
+// device-count one registers at the 64-register cap).
+template <int K>
+__device__ void walk_device_counts(const WalkArgs& args) {
+  WalkArgs A = args;
+  A.nq = __ldg(args.counts), A.nr = __ldg(args.counts + 1);
+  walk<K>(A);
+}
+
 // Dense: every valid ref tile, newest first (a sequential map's best
 // matches live in its latest appends, which then set a tight bound early).
 __global__ void __launch_bounds__(32, 32) knn_dense_kernel(WalkArgs A) { walk<kDense>(A); }
+__global__ void __launch_bounds__(32, 32) knn_dense_kernel_dc(WalkArgs A) {
+  walk_device_counts<kDense>(A);
+}
 
 // Candidate table: only the ref tiles listed for this query tile, in table
 // order (best first); entries past cnt are not visited.
 __global__ void __launch_bounds__(32, 32) knn_cand_kernel(WalkArgs A) { walk<kCand>(A); }
+__global__ void __launch_bounds__(32, 32) knn_cand_kernel_dc(WalkArgs A) {
+  walk_device_counts<kCand>(A);
+}
 
 // Resident: the valid sub-tiles, the query tile's best one first, then the
 // others ascending.
 __global__ void __launch_bounds__(32, 32) knn_resident_kernel(WalkArgs A) {
   walk<kResident>(A);
+}
+__global__ void __launch_bounds__(32, 32) knn_resident_kernel_dc(WalkArgs A) {
+  walk_device_counts<kResident>(A);
 }
 
 // ---------------------------------------------------------------------------
@@ -549,6 +572,12 @@ __global__ void __launch_bounds__(32, 32) knn_resident_kernel(WalkArgs A) {
 // those the pairs another share of its list scores too (the resident
 // list's position 0 in every share past the first; 0 in the other kernels).
 // The pairs a call needs are the second column's sum less the third's.
+// `counts` is null (the valid counts are the host's nq and nr) or an int32
+// [2] device buffer holding them: the kernel's `_dc` entry reads them there,
+// so a launch captured in a CUDA graph follows a count that changes between
+// replays.
+// Then nq and nr are upper bounds only; work items whose queries all lie
+// past the device nq write their seeds and walk nothing.
 
 extern "C" int knn_walk_config(int* out) {
   out[0] = QPT, out[1] = CHUNK, out[2] = GROUP;
@@ -556,14 +585,15 @@ extern "C" int knn_walk_config(int* out) {
 }
 
 // Enough persistent one-warp blocks to fill every SM (at most `items`).
-template <int K>
-static int walk_launch(const WalkArgs& A, void* stream) {
+template <int K, bool DC>
+static int walk_launch_as(const WalkArgs& A, void* stream) {
   const int ch = min(CHUNK, A.rt);
   if (A.qt % (32 * QPT) || A.rt % GROUP || A.rt % ch ||
       (long long)(A.nrt + 1) * A.rt >= 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
-  auto kernel = K == kDense ? knn_dense_kernel : K == kCand ? knn_cand_kernel
-                                                            : knn_resident_kernel;
+  auto kernel = K == kDense  ? (DC ? knn_dense_kernel_dc : knn_dense_kernel)
+                : K == kCand ? (DC ? knn_cand_kernel_dc : knn_cand_kernel)
+                             : (DC ? knn_resident_kernel_dc : knn_resident_kernel);
   static int per_sm = -1, n_sm = 0;
   if (per_sm < 0) {
     int dev = 0;
@@ -580,16 +610,21 @@ static int walk_launch(const WalkArgs& A, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <int K>
+static int walk_launch(const WalkArgs& A, void* stream) {
+  return A.counts ? walk_launch_as<K, true>(A, stream) : walk_launch_as<K, false>(A, stream);
+}
+
 extern "C" int knn_dense_launch(const void* q4, const void* r4, const void* rbb,
                                 const void* s0, const void* i0, int n_qt, int qt, int nq,
                                 int nr, int nrt, int rt, int split_min, int max_splits,
                                 void* out_s, void* out_i, void* merged, void* work,
-                                void* visits, void* stream) {
+                                void* visits, const void* counts, void* stream) {
   const WalkArgs A{(const float4*)q4, (const float4*)r4, (const float*)rbb,
                    (const float*)s0, (const int*)i0, nullptr, nullptr, nullptr, 0, qt, nq,
                    nr, nrt, rt, n_qt * (qt / (32 * QPT)), split_min, max_splits,
                    (float*)out_s, (int*)out_i, (unsigned long long*)merged, (int*)work,
-                   (long long*)visits};
+                   (long long*)visits, (const int*)counts};
   return walk_launch<kDense>(A, stream);
 }
 
@@ -598,12 +633,13 @@ extern "C" int knn_cand_launch(const void* q4, const void* r4, const void* rbb,
                                const void* cnt, const void* order, int mc, int n_qt, int qt,
                                int nq, int nr, int nrt, int rt, int split_min, int max_splits,
                                void* out_s, void* out_i, void* merged, void* work,
-                               void* visits, void* stream) {
+                               void* visits, const void* counts, void* stream) {
   const WalkArgs A{(const float4*)q4, (const float4*)r4, (const float*)rbb,
                    (const float*)s0, (const int*)i0, (const int*)cand, (const int*)cnt,
                    (const int*)order, mc, qt, nq, nr, nrt, rt, n_qt * (qt / (32 * QPT)),
                    split_min, max_splits, (float*)out_s, (int*)out_i,
-                   (unsigned long long*)merged, (int*)work, (long long*)visits};
+                   (unsigned long long*)merged, (int*)work, (long long*)visits,
+                   (const int*)counts};
   return walk_launch<kCand>(A, stream);
 }
 
@@ -612,11 +648,11 @@ extern "C" int knn_resident_launch(const void* q4, const void* r4, const void* r
                                    const void* s0, const void* i0, int n_qt, int qt, int nq,
                                    int nr, int nrt, int rt, int split_min, int max_splits,
                                    void* out_s, void* out_i, void* merged, void* work,
-                                   void* visits, void* stream) {
+                                   void* visits, const void* counts, void* stream) {
   const WalkArgs A{(const float4*)q4, (const float4*)r4, (const float*)rbb,
                    (const float*)s0, (const int*)i0, nullptr, nullptr, nullptr, 0, qt, nq,
                    nr, nrt, rt, n_qt * (qt / (32 * QPT)), split_min, max_splits,
                    (float*)out_s, (int*)out_i, (unsigned long long*)merged, (int*)work,
-                   (long long*)visits};
+                   (long long*)visits, (const int*)counts};
   return walk_launch<kResident>(A, stream);
 }

@@ -222,9 +222,9 @@ def resident_split_plain(q4, r4, rbb, s0, i0, nq, nr, st, splits: int):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "knn_dense_launch": [_P] * 5 + [_I] * 8 + [_P] * 6,
-    "knn_cand_launch": [_P] * 8 + [_I] * 9 + [_P] * 6,
-    "knn_resident_launch": [_P] * 5 + [_I] * 8 + [_P] * 6,
+    "knn_dense_launch": [_P] * 5 + [_I] * 8 + [_P] * 7,
+    "knn_cand_launch": [_P] * 8 + [_I] * 9 + [_P] * 7,
+    "knn_resident_launch": [_P] * 5 + [_I] * 8 + [_P] * 7,
     "knn_walk_config": [ctypes.POINTER(_I)],
 }
 
@@ -330,11 +330,30 @@ def fp32_distance_bound(q: Tensor, r: Tensor) -> Tensor:
     return 2.0 ** -24 * (16.0 * (qn * rn2.sqrt() + 0.5 * rn2) + 4.0 * qn * qn)
 
 
+def is_device_count(n) -> bool:
+    """Whether a valid count is a 0-d tensor (kept on its device, never read
+    by the host) rather than a python int."""
+    return isinstance(n, Tensor)
+
+
+def _device_counts(nq, nr, dev) -> Optional[Tensor]:
+    """The kernels' int32 ``[2]`` device counts (nq, nr) when either count is
+    a tensor, else None (the host ints go to the launch). Built by device
+    ops alone, so that it can be captured in a CUDA graph."""
+    if not (is_device_count(nq) or is_device_count(nr)):
+        return None
+    return torch.stack([n.to(device=dev, dtype=torch.int32) if is_device_count(n)
+                        else torch.full((), n, dtype=torch.int32, device=dev)
+                        for n in (nq, nr)])
+
+
 def _walk(symbol, q4, r4, rbb, s0, i0, nq, nr, rt, visits, head=(),
           splits=(SPLIT_MIN, MAX_SPLITS)):
     """Launch a kernel on the walk core over ref tiles of ``rt`` rows:
     ``head`` holds the candidate kernel's table arguments, ``splits``
-    (split_min, max_splits) how a query group's list is shared out."""
+    (split_min, max_splits) how a query group's list is shared out. A count
+    given as a tensor is read by the kernel on the device; the launch then
+    takes the buffer's rows as the host's upper bound."""
     n_qt = q4.shape[0] // QT
     cfg = walk_config()
     per_tile = QT // (32 * cfg["qpt"])
@@ -354,17 +373,23 @@ def _walk(symbol, q4, r4, rbb, s0, i0, nq, nr, rt, visits, head=(),
     groups = n_qt * per_tile
     scratch = torch.zeros(q4.shape[0] + groups // 2 + 1, dtype=torch.int64, device=q4.device)
     out_s, out_i = _outputs(q4)
+    counts = _device_counts(nq, nr, q4.device)
+    if counts is not None:
+        nq, nr = q4.shape[0], r4.shape[0]
     _launch(symbol, q4.data_ptr(), r4.data_ptr(), rbb.data_ptr(), _ptr(s0), _ptr(i0), *head,
             n_qt, QT, nq, nr, r4.shape[0] // rt, rt, *splits, out_s.data_ptr(),
             out_i.data_ptr(), scratch.data_ptr(), scratch[q4.shape[0]:].data_ptr(),
-            _ptr(visits))
+            _ptr(visits), _ptr(counts))
     return out_s, out_i
 
 
 @_Wrapper
-def dense_kernel(self, q4, r4, rbb, s0, i0, nq: int, nr: int, rt: int, visits=None):
+def dense_kernel(self, q4, r4, rbb, s0, i0, nq, nr, rt: int, visits=None):
     """Replaces ``_dense_pallas_call``. ``q4 [n_qt*QT, 4]``, ``r4 [nrt*rt, 4]``,
-    ``rbb [nrt, 8]``, seeds ``s0/i0 [n_qt*QT]`` or None. Returns the best
+    ``rbb [nrt, 8]``, seeds ``s0/i0 [n_qt*QT]`` or None; the valid counts
+    ``nq``/``nr`` are python ints or 0-d tensors on the device (read there
+    by the kernel, as the Pallas kernels read their scalar-prefetch
+    counts). Returns the best
     score and index per query row. ``visits`` (optional, CUDA only): int64
     ``[walk_items_max(n_qt), 3]`` of zeros, which receives per work item
     (one query group's share of its list) the ref rows it staged, the
@@ -380,8 +405,7 @@ def dense_kernel(self, q4, r4, rbb, s0, i0, nq: int, nr: int, rt: int, visits=No
 
 
 @_Wrapper
-def cand_kernel(self, q4, r4, rbb, s0, i0, cand, cnt, nq: int, nr: int, rt: int,
-                visits=None):
+def cand_kernel(self, q4, r4, rbb, s0, i0, cand, cnt, nq, nr, rt: int, visits=None):
     """Replaces ``_cand_pallas_call``. As ``dense_kernel``, plus the table
     ``cand [n_qt, MC]`` int32 (ref tiles in visit order) and ``cnt [n_qt]``
     int32 (entries used); seeds are required."""
@@ -400,7 +424,7 @@ def cand_kernel(self, q4, r4, rbb, s0, i0, cand, cnt, nq: int, nr: int, rt: int,
 
 
 @_Wrapper
-def resident_kernel(self, q4, r4, rbb, s0, i0, nq: int, nr: int, st: int, visits=None):
+def resident_kernel(self, q4, r4, rbb, s0, i0, nq, nr, st: int, visits=None):
     """Replaces ``_resident_pallas_call``. As ``dense_kernel`` with sub-tiles
     of ``st`` rows; ``rbb`` holds one box per staged chunk of
     ``min(chunk, st)`` rows (``walk_config()``). The plain version takes
@@ -429,19 +453,21 @@ def _pad_rows(x: Tensor, n: int, value: float = 0.0) -> Tensor:
     return torch.cat([x, pad], dim=0)
 
 
-def cand_table(q4: Tensor, s0: Tensor, r_pad: Tensor, nq: int, nr: int, rt: int):
+def cand_table(q4: Tensor, s0: Tensor, r_pad: Tensor, nq, nr, rt: int):
     """The candidate kernel's table for a warm call: per query tile, every
     valid ref tile of ``rt`` rows whose box gap is below the tile's seeded
     worst-best distance, best first. The ulp guard admits borderline tiles
     the kernel's own bound might still visit. Returns (ref tile boxes
-    ``[nrt, 8]``, table ``[n_qt, width]`` int32, counts ``[n_qt]`` int32)."""
+    ``[nrt, 8]``, table ``[n_qt, width]`` int32, counts ``[n_qt]`` int32).
+    The table is as wide as the valid ref tiles for a host ``nr``, as all
+    the buffer's tiles for a device one (the invalid ones never listed)."""
     nq_pad, n_qt = q4.shape[0], q4.shape[0] // QT
     q2p = (q4 * q4).sum(dim=1) - 1.0
     col = torch.arange(nq_pad, device=q4.device)
     d2_0 = torch.where(col < nq, q2p - 2.0 * s0, torch.full_like(q2p, -float("inf")))
     wb0 = d2_0.view(n_qt, QT).amax(dim=1)
     rbb = _tile_boxes(r_pad, rt)
-    width = max(1, min(rbb.shape[0], -(-nr // rt)))
+    width = rbb.shape[0] if is_device_count(nr) else max(1, min(rbb.shape[0], -(-nr // rt)))
     lb2 = _box_gap2(_tile_boxes(q4, QT), rbb[:width])
     tile_valid = torch.arange(width, device=q4.device) * rt < nr
     lb2 = torch.where(tile_valid[None, :], lb2, torch.full_like(lb2, float("inf")))
@@ -458,9 +484,11 @@ def knn(query: Tensor, ref: Tensor, nr=None, nq=None, init_idx=None,
 
     Args:
       query: ``[Nq, 3]``; ref: ``[Nr, 3]``.
-      nr / nq: valid ref / query counts (python ints or 0-d tensors);
-        default all. Refs past ``nr`` never match; results past ``nq`` are
-        undefined.
+      nr / nq: valid ref / query counts, python ints or 0-d integer
+        tensors on the query's device; default all. A tensor count is never
+        read by the host: the kernels read it on the device, so the call
+        can be captured in a CUDA graph. Refs past ``nr`` never match;
+        results past ``nq`` are undefined.
       init_idx: optional ``[Nq]`` warm-start candidates (-1 or out of range
         = none). Each is re-scored at the current positions and seeds the
         search bound; the result is the true top-1 either way.
@@ -472,8 +500,8 @@ def knn(query: Tensor, ref: Tensor, nr=None, nq=None, init_idx=None,
     Nq, Nr = query.shape[0], ref.shape[0]
     if Nr == 0:
         raise ValueError("knn needs at least one reference row (nr may be 0)")
-    nr = Nr if nr is None else int(nr)
-    nq = Nq if nq is None else int(nq)
+    nr = Nr if nr is None else nr if is_device_count(nr) else int(nr)
+    nq = Nq if nq is None else nq if is_device_count(nq) else int(nq)
     dev = query.device
     nq_pad = -(-Nq // QT) * QT
     nr_pad = -(-Nr // RT) * RT

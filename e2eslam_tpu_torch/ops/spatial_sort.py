@@ -59,8 +59,9 @@ def morton_codes(points: Tensor, valid: Tensor) -> Tensor:
     return torch.where(valid, code, torch.full_like(code, INVALID_KEY))
 
 
-def sort_map_points(points: Tensor, count: int) -> SortedMap:
-    """Morton-sort ``points`` whose first ``count`` rows are valid. Stable,
+def sort_map_points(points: Tensor, count) -> SortedMap:
+    """Morton-sort ``points`` whose first ``count`` rows are valid (a python
+    int, or a 0-d tensor on their device, never read by the host). Stable,
     so equal codes (and the invalid tail) keep their order."""
     n = points.shape[0]
     valid = torch.arange(n, device=points.device) < count

@@ -27,7 +27,9 @@ keep the table's low bits (the JAX package's int32 products wrap; their
 low bits are the same), and float -> int conversions saturate as JAX's do.
 The weighted sum is one ``index_add_`` (deterministic on the card under
 ``torch.use_deterministic_algorithms``). The new count is one host read
-per pass.
+per pass for an int count; a tensor count (the whole-sequence program's)
+comes back as a tensor, and the pass still reads its masks' sizes: it runs
+eagerly, between the program's replays.
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ def _compact_rows(m: MapState, key: Tensor, coord: Tensor, table_size: int,
     dest = torch.cumsum(keep.to(torch.int64), 0) - 1
     data = torch.zeros_like(m.data)
     data[dest[keep]] = out_rows[keep]
-    count = int(keep.sum())
+    count = keep.sum() if isinstance(m.count, Tensor) else int(keep.sum())
     # Each valid old row's new home: its own packed slot, or its winner's.
     home = torch.where(keep, dest, torch.full_like(dest, N))
     row_map = torch.where(same & ~is_winner, home[wsafe], home)

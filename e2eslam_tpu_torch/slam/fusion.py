@@ -25,6 +25,13 @@ fused keyframe's camera and reading that keyframe's cached index image:
 O(H*W) gathers and scatters, no pass over the map. ``index_nn`` is the 3D
 loss's association through the same image.
 
+The map's ``count`` (and two-level index fusion's ``kf_counter``) is a
+python int or a 0-d int64 tensor on the map's device. A tensor stays a
+tensor through fusion with no host read (the whole-sequence program replays
+fusion in a CUDA graph); an int stays an int, read once per fusion. Rows
+are written with ``index_copy_`` (``_write_rows``), never through a
+boolean-mask index, and no shape depends on the count.
+
 Fusion updates the map buffer in place, outside autograd, unless autograd
 is on and the map or the frame requires grad (``PointFusion.__call__``
 under the gradient-flow experiments, ``apps/gradient_experiments.py``):
@@ -147,6 +154,30 @@ def _associate(state: MapState, frame: RGBDFrame, live: FramePoints, *,
     return pix, best_idx, winner, v_live, n_live
 
 
+def count_add(count, added: Tensor, capacity: int):
+    """``count + added`` capped at ``capacity``: a python int for an int
+    ``count`` (one host read of ``added``), a 0-d tensor with no host read
+    for a tensor one."""
+    if isinstance(count, Tensor):
+        return (count + added).clamp(max=capacity)
+    return min(count + int(added), capacity)
+
+
+def _write_rows(data: Tensor, tgt: Tensor, rows: Tensor, writes: Tensor) -> None:
+    """``data[tgt[writes]] = rows[writes]`` in place with one ``index_copy_``
+    and no boolean-mask index (which reads its nonzero count to the host):
+    entries that write nothing repeat the last writer's write (or, with no
+    writer at all, write row 0 back), a harmless duplicate of equal bytes."""
+    ids = torch.arange(tgt.shape[0], device=tgt.device)
+    last = torch.where(writes, ids, -1).amax().view(1)
+    any_w = last >= 0
+    last = last.clamp(min=0)
+    sink_tgt = torch.where(any_w, tgt.index_select(0, last), 0)
+    sink_row = torch.where(any_w[:, None], rows.index_select(0, last), data[:1])
+    data.index_copy_(0, torch.where(writes, tgt, sink_tgt),
+                     torch.where(writes[:, None], rows, sink_row))
+
+
 def _window_view(state: MapState, window: int):
     """The newest ``window`` rows of the map as a map of their own
     (``e2eslam_tpu/slam/fusion.py:121-138``): association and fusion then
@@ -252,11 +283,10 @@ def _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, *, 
     ok = new_mask & (dest < N)
     live_rows = pack_rows(live.points, live.normals, live.colors, alpha)
     if inplace:
-        data[dest[ok]] = live_rows[ok]
+        _write_rows(data, dest, live_rows, ok)
     else:
         data = data.index_put((dest[ok],), live_rows[ok])
-    count = min(state.count + int(new_mask.sum()), N)
-    return dataclasses.replace(state, data=data, count=count)
+    return dataclasses.replace(state, data=data, count=count_add(state.count, new_mask.sum(), N))
 
 
 def _lookup(image: Tensor, pose: Tensor, live: FramePoints, frame: RGBDFrame):
@@ -397,7 +427,9 @@ def _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_perio
     # ---- 4. one scatter of merges and appends; duplicates carry the winner
     # Merge targets are valid rows (below ``count``), appends lie past it.
     pix_ids = torch.arange(HW, device=dev)
-    winner = torch.full((max(state.count, 1),), -1, dtype=torch.int64, device=dev)
+    # One slot per valid row (a device count: per buffer row).
+    n_slots = N if isinstance(state.count, Tensor) else max(state.count, 1)
+    winner = torch.full((n_slots,), -1, dtype=torch.int64, device=dev)
     winner.scatter_reduce_(0, torch.where(similar, cand_c, 0),
                            torch.where(similar, pix_ids, -1), "amax")
     src = torch.where(similar, winner.index_select(0, torch.where(similar, cand_c, 0)), pix_ids)
@@ -405,21 +437,12 @@ def _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_perio
     writes = similar | ok
     tgt = torch.where(similar, cand_c, dest)
     if inplace:
-        # Pixels that write nothing repeat the last writer's write (or, with
-        # no writer at all, write row 0 back): a harmless duplicate.
-        last = torch.where(writes, pix_ids, -1).amax().view(1)
-        any_w = last >= 0
-        last = last.clamp(min=0)
-        sink_tgt = torch.where(any_w, tgt.index_select(0, last), 0)
-        sink_row = torch.where(any_w[:, None], rows.index_select(0, last), state.data[:1])
-        tgt = torch.where(writes, tgt, sink_tgt)
-        rows = torch.where(writes[:, None], rows, sink_row)
-        state.data.index_copy_(0, tgt, rows)
+        _write_rows(state.data, tgt, rows, writes)
         data = state.data
     else:
         once = writes & (~similar | (src == pix_ids))
         data = state.data.index_put((tgt[once],), rows[once])
-    count = min(state.count + int(new_mask.sum()), N)
+    count = count_add(state.count, new_mask.sum(), N)
 
     # ---- 5. this keyframe's index image; the second level ----------------
     new_index = torch.where(similar, cand_c, torch.where(ok, dest, -1)).to(torch.int32)
@@ -429,6 +452,10 @@ def _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_perio
         if level2_period <= 1 or kctr is None:
             # Level 2 is the previous keyframe's image (one-keyframe gaps).
             idx2, pose2 = state.index_image, state.index_pose
+        elif isinstance(kctr, Tensor):
+            # A slow level on a device counter: chosen on the device.
+            due = kctr % level2_period == 0
+            idx2, pose2 = torch.where(due, new_index, idx2), torch.where(due, pose, pose2)
         elif kctr % level2_period == 0:
             # A slow level: every K-th keyframe's image, held K keyframes.
             idx2, pose2 = new_index, pose

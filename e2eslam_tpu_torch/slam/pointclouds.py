@@ -3,20 +3,23 @@
 One ``[capacity, 16]`` float buffer holds each map point's fields in a row
 (points 0:3, normals 3:6, colors 6:9, confidence 9; columns 10:16 pad the
 row to 64 bytes), the JAX package's layout. ``count`` rows at the front
-are valid; appends write at the ``count`` cursor. In the port the count is
-a host integer, read after each fusion.
+are valid; appends write at the ``count`` cursor. The count is a python int
+(the per-keyframe loop reads it to the host after each fusion) or a 0-d
+int64 tensor on the map's device (``on_device``: the whole-sequence program
+never reads it, so its events can replay as a CUDA graph).
 
 Index fusion (``MODEL.fusion_impl: index``) also keeps the last fused
 keyframe's per-pixel map slots (``index_image``, int32, -1 where no map
 point) with that keyframe's pose, and with ``MODEL.index_levels: 2`` a
-second, older level and a fused-keyframe counter (a host integer, as
+second, older level and a fused-keyframe counter (an int or a tensor, as
 ``count`` is). They are ``None`` unless the config needs them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -31,12 +34,12 @@ class MapState:
     """Packed map rows plus the number of valid rows."""
 
     data: Tensor  # [N, 16]
-    count: int
+    count: Union[int, Tensor]  # a python int, or a 0-d int64 tensor on data's device
     index_image: Optional[Tensor] = None  # [H*W] int32 map slot per pixel, -1 none
     index_pose: Optional[Tensor] = None  # [4, 4] pose of the index image's frame
     index_image2: Optional[Tensor] = None  # the second level's slots
     index_pose2: Optional[Tensor] = None
-    kf_counter: Optional[int] = None  # fused keyframes; present iff two levels
+    kf_counter: Optional[Union[int, Tensor]] = None  # fused keyframes; iff two levels
 
     @property
     def points(self) -> Tensor:  # [N, 3] world-frame positions
@@ -53,6 +56,17 @@ class MapState:
     @property
     def confidence(self) -> Tensor:  # [N]
         return self.data[:, 9]
+
+
+def on_device(m: MapState) -> MapState:
+    """``m`` with its count and keyframe counter as 0-d int64 tensors on its
+    buffer's device (the same buffers otherwise)."""
+    def dev(n):
+        if n is None or isinstance(n, Tensor):
+            return n
+        return torch.full((), int(n), dtype=torch.int64, device=m.data.device)
+
+    return dataclasses.replace(m, count=dev(m.count), kf_counter=dev(m.kf_counter))
 
 
 def pack_rows(points: Tensor, normals: Tensor, colors: Tensor,

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 import torch
 
 from e2eslam_tpu_torch.slam.fusion import (
+    _write_rows,
+    count_add,
     frame_pointcloud,
     pointfusion_step,
     pointfusion_step_index,
@@ -39,15 +41,16 @@ ODOMETRY = ("gt", "icp", "gradicp")
 @torch.no_grad()
 def _append_frame(state: MapState, frame: RGBDFrame) -> MapState:
     """ICPSLAM's map update: append every valid pixel at the count cursor,
-    in place (``e2eslam_tpu/slam/slam.py:34-51``)."""
+    in place (``e2eslam_tpu/slam/slam.py:34-51``); the count an int or a
+    device tensor, as fusion's."""
     live = frame_pointcloud(frame)
     N = state.data.shape[0]
     new_mask = live.mask > 0
     dest = state.count + torch.cumsum(new_mask.to(torch.int64), 0) - 1
     ok = new_mask & (dest < N)
     rows = pack_rows(live.points, live.normals, live.colors, live.mask)
-    state.data[dest[ok]] = rows[ok]
-    return dataclasses.replace(state, count=min(state.count + int(new_mask.sum()), N))
+    _write_rows(state.data, dest, rows, ok)
+    return dataclasses.replace(state, count=count_add(state.count, new_mask.sum(), N))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -721,3 +721,102 @@ def test_recover_depth_gradient_on_the_card_matches_the_cpu(card):
     assert float(w.abs().max()) > 0
     off = (g - w).abs() > 2e-3 * float(w.abs().max())
     assert int(off.sum()) <= 2 * differing, (int(off.sum()), differing)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dense", "cand", "resident"])
+def test_kernels_read_their_counts_on_the_card(card, kernel):
+    """Each kernel given its valid counts as device tensors (read by the
+    kernel, for a launch inside a CUDA graph) returns the bits of the same
+    call given them as host ints."""
+    args = _args(card, kernel, seeded=True)
+    kern = getattr(K, f"{kernel}_kernel")
+    nq, nr = args[-3], args[-2]  # (..., nq, nr, tile) for every kernel
+    dev_args = list(args)
+    dev_args[-3] = torch.full((), nq, dtype=torch.int64, device=card)
+    dev_args[-2] = torch.full((), nr, dtype=torch.int64, device=card)
+    s_h, i_h = kern(*args)
+    s_d, i_d = kern(*dev_args)
+    assert torch.equal(s_h[:nq], s_d[:nq]) and torch.equal(i_h[:nq], i_d[:nq])
+
+
+def _sequence_runner(program=True, **over):
+    """The default config at 64x64 over 6 frames (5 keyframes, so 3 warm
+    events), on the card."""
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    cfg = load_yaml(default_config_path())
+    cfg.DATA.height = cfg.DATA.width = 64
+    cfg.DEMO.sequence_length = 6
+    cfg.DEMO.frame_threshold = 0.01
+    cfg.OPTIMIZATION.refinement_steps = 2
+    for k, v in over.items():
+        sec, flag = k.split(".")
+        cfg[sec][flag] = v
+    runner = OnlineAdaptation(cfg)
+    runner.use_sequence_program = program
+    return runner
+
+
+class _EagerGraph:
+    """Stands in for a captured graph: its replay runs the event eagerly."""
+
+    def __init__(self, run):
+        self.replay = run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [{}, {"LOSS.chamfer_distance": True},
+                                  {"MODEL.fusion_impl": "index", "LOSS.knn_impl": "index",
+                                   "MODEL.index_levels": 2, "MODEL.index_level2_period": 2}],
+                         ids=["brute", "chamfer", "index"])
+def test_captured_event_equals_the_eager_event(card, over):
+    """With deterministic algorithms, the program's warm events replayed
+    from one CUDA graph give what the same events run eagerly give: the
+    same metrics, poses and map."""
+    runs = []
+    for graph in (True, False):
+        runner = _sequence_runner(**over)
+        engine = runner.engine
+        if not graph:
+            def eager(seq, K_, pair_i, ev_i, ms, carry, out, est, info, _e=engine):
+                return _EagerGraph(lambda: _e._sequence_event(seq, K_, pair_i, ev_i, ms, carry,
+                                                              out, est, fuse_prev=False))
+
+            engine._capture_event = eager
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs.append(runner.run(verbose=False))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+    a, b = runs
+    assert a["sequence_program"] and a["graphs"] == 1 and b["graphs"] == 0
+    assert a["keyframes"] == b["keyframes"] and len(a["keyframes"]) >= 4
+    for ma, mb in zip(a["metrics"], b["metrics"]):
+        assert ma.keys() == mb.keys()
+        for key in ma:
+            np.testing.assert_allclose(ma[key], mb[key], rtol=1e-5, atol=1e-7, err_msg=key)
+    np.testing.assert_allclose(a["est_poses"], b["est_poses"], atol=1e-6)
+    assert a["map_points"] == b["map_points"]
+    n = a["map_points"]
+    torch.testing.assert_close(a["map"].data[:n], b["map"].data[:n], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [{}, {"MODEL.compact_period": 2}], ids=["plain", "compact"])
+def test_replays_make_no_host_synchronisation(card, over):
+    """The replay loop (each event's pinned index copies and its graph
+    replay) raises nothing under set_sync_debug_mode("error"); the run
+    reads the card only after its last event (and in compaction, between
+    replays)."""
+    runner = _sequence_runner(**over)
+    runner.engine.replay_sync_mode = "error"
+    result = runner.run(verbose=False)
+    assert result["sequence_program"] and result["graphs"] == 1
+    assert len(result["keyframes"]) >= 4
+    assert all(np.isfinite(m["abs_rel"]) for m in result["metrics"])
+    if over:
+        assert [c["keyframe"] for c in result["compactions"]] == [1, 3]

@@ -86,6 +86,7 @@ def test_icl_run_matches_jax(tmp_path, monkeypatch):
     jr.use_sequence_program = False
     want = jr.run(verbose=False)
     runner = OnlineAdaptation(icl_config(load_yaml, str(tmp_path)))
+    runner.use_sequence_program = False  # held against the JAX runner's loop
     assert runner.dataset.decoder == ("native" if both_native else "pil")
     K = runner.dataset.intrinsics
     assert K[1, 1] == pytest.approx(-480.0 * 64 / 480, rel=1e-6)

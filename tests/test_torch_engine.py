@@ -150,8 +150,10 @@ def test_online_adaptation_matches_jax(sequence_length):
     want = jr.run(verbose=False)
     model = DispResNetIndoor(18)
     load_jax_params(model, params, stats)
-    got = OnlineAdaptation(_cfg(load_yaml, default_config_path(), **over),
-                           device="cpu", model=model).run(verbose=False)
+    runner = OnlineAdaptation(_cfg(load_yaml, default_config_path(), **over),
+                              device="cpu", model=model)
+    runner.use_sequence_program = False  # the loop; the program: test_torch_sequence.py
+    got = runner.run(verbose=False)
     assert got["keyframes"] == [int(k) for k in want["keyframes"]]
     assert len(got["keyframes"]) >= 3
     for k, (a, b) in enumerate(zip(got["metrics"], want["metrics"])):
@@ -220,6 +222,7 @@ def test_bucketed_view_matches_full_buffer(quantum):
         over.update({f"LOSS.{k}": v for k, v in loss.items()})
         runner = OnlineAdaptation(_cfg(load_yaml, default_config_path(), **over),
                                   device="cpu")
+        runner.use_sequence_program = False  # the loop's bucketed views
         seen = []
         build = runner.engine.build_map_index
         runner.engine.build_map_index = lambda m, b=None: (seen.append(b), build(m, b))[1]

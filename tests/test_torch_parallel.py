@@ -85,8 +85,9 @@ def _batched(cfg, seqs, **kw):
 def _solo(cfg, dataset, i):
     c = copy.deepcopy(cfg)
     c.SETTINGS.seed = 1 + i
-    return OnlineAdaptation(c, dataset=dataset, device="cpu",
-                            model=make_depth_model(cfg)).run(verbose=False)
+    runner = OnlineAdaptation(c, dataset=dataset, device="cpu", model=make_depth_model(cfg))
+    runner.use_sequence_program = False  # the batched runner runs the loop per sequence
+    return runner.run(verbose=False)
 
 
 def _close(got, want):

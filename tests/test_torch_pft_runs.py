@@ -54,13 +54,16 @@ def run_both(over, threads=None):
 
 
 def port_run(over, weights):
-    """The port's run on the CPU from the JAX package's flax weights."""
+    """The port's per-keyframe loop on the CPU from the JAX package's flax
+    weights (its whole-sequence program: tests/test_torch_sequence.py)."""
     from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
 
     cfg = _cfg(load_yaml, default_config_path(), over)
     model = make_depth_model(cfg)
     load_jax_params(model, *weights)
-    return OnlineAdaptation(cfg, device="cpu", model=model).run(verbose=False)
+    runner = OnlineAdaptation(cfg, device="cpu", model=model)
+    runner.use_sequence_program = False  # held against the JAX runner's loop
+    return runner.run(verbose=False)
 
 
 def check_run(got, want, terms, close=2, map_rtol=0.01):

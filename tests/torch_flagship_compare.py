@@ -79,7 +79,9 @@ def _port_run(args, weights, verbose=False):
     cfg.SETTINGS.compute_dtype = args.dtype
     model = make_depth_model(cfg)
     load_jax_params(model, *weights)
-    return OnlineAdaptation(cfg, device="cpu", model=model).run(verbose=verbose)
+    runner = OnlineAdaptation(cfg, device="cpu", model=model)
+    runner.use_sequence_program = False  # as the JAX side: the per-keyframe loop
+    return runner.run(verbose=verbose)
 
 
 def _one(args):
