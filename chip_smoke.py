@@ -2495,11 +2495,14 @@ def phase_sharded(knn, stats):
 # (the JAX program's cross-keyframe cache) where the loop seeds it from the
 # map's tail, and a seed keeps a float32 near-tie the other search gives to
 # another row; and the per-tensor Adam runs its capturable form in the
-# program, which rounds the update differently. So the held brute runs
-# drop the KNN's seeds (``seedless``: both sides search cold, the dense and
-# resident kernels) and take the fused Adam (one kernel in both), and the
-# index path (no KNN) is held as it ships; the shipped brute runs are
-# reported, held to equal keyframes and the first keyframe only.
+# program, which rounds the update otherwise (both within 1e-6 of optax's
+# formula, ``phase_optimizers``). So the held brute runs drop the KNN's
+# seeds (``seedless``: both sides search cold, the dense and resident
+# kernels) and take the fused Adam (one kernel in both) or an optimizer of
+# the port's own (one code in both), and the index path (no KNN) is held as
+# it ships; the shipped brute runs are reported, held to equal keyframes
+# and the first keyframe only. ``default_12_seedless_adam`` reports where
+# the two Adam forms part.
 FUSED = {"OPTIMIZATION__fused_update": True}
 SEQUENCE_RUNS = (
     ("default_12", "config", 12, {}, False, False),
@@ -2511,7 +2514,15 @@ SEQUENCE_RUNS = (
     ("compact_60", "compact", 60, {}, False, True),
     ("chamfer_12", "chamfer", 12, {}, False, False),
     ("chamfer_12_seedless", "chamfer", 12, FUSED, True, True),
+    # The per-tensor Adam: seedless, its two forms the one difference.
+    ("default_12_seedless_adam", "config", 12, {}, True, False),
+    ("active_window_12_seedless", "config", 12, {"MODEL__active_window": 163_840, **FUSED},
+     True, True),
+    ("sgd_12_seedless", "config", 12, {"OPTIMIZATION__optimizer": "SGD"}, True, True),
 )
+# Seedless runs whose program must equal its loop to the bit (every abs_rel,
+# every map point, every pose): one optimizer code and cold searches in both.
+SEQUENCE_EXACT = ("active_window_12_seedless", "sgd_12_seedless")
 SEQUENCE_FIRST_TOL = 1e-3  # the first two keyframes' abs_rel, relative (the run tolerance)
 SEQUENCE_MEAN_TOL = 0.005  # mean abs_rel (PERF.md section 2)
 
@@ -2618,9 +2629,17 @@ def _check_pair(label, prog, loop, pline, lline, held):
     events, finite abs_rel, the first keyframe's abs_rel within
     SEQUENCE_FIRST_TOL and, when ``held``, the second's too, the mean within
     SEQUENCE_MEAN_TOL and the map within the tie allowance
-    max(4, count // 1000) (tests/test_engine.py:506-508). Returns the
-    gaps."""
+    max(4, count // 1000) (tests/test_engine.py:506-508); a run of
+    SEQUENCE_EXACT equal to the bit. Returns the gaps, with where the two
+    first part (``first_parted``: the keyframe, None when equal)."""
     rel, mean_gap, map_gap = _gaps(prog, loop)
+    parted = [k for k, (a, b) in enumerate(zip(prog["metrics"], loop["metrics"]))
+              if a["abs_rel"] != b["abs_rel"]]
+    bitwise = (not parted and prog["map_points"] == loop["map_points"]
+               and (prog["est_poses"] == loop["est_poses"]).all())
+    if label in SEQUENCE_EXACT and not bitwise:
+        fail(f"sequence {label}: the program parts from the loop at keyframe "
+             f"{parted[:1]} (abs_rel gaps {rel[:4]}, map {map_gap})")
     allowance = max(4, loop["map_points"] // 1000)
     if not prog["sequence_program"] or loop["sequence_program"]:
         fail(f"sequence {label}: the program and the loop were not the runs' paths")
@@ -2641,8 +2660,10 @@ def _check_pair(label, prog, loop, pline, lline, held):
     if held and map_gap > allowance:
         fail(f"sequence {label}: map points {prog['map_points']} against the loop's "
              f"{loop['map_points']}")
-    return {"held": held, "first_two_rel_gap": rel[:2], "max_rel_gap": max(rel),
-            "mean_abs_rel_gap": mean_gap, "map_gap": map_gap, "map_allowance": allowance}
+    return {"held": held, "bitwise_equal": bool(bitwise),
+            "first_parted": parted[0] if parted else None, "first_two_rel_gap": rel[:2],
+            "max_rel_gap": max(rel), "mean_abs_rel_gap": mean_gap, "map_gap": map_gap,
+            "map_allowance": allowance}
 
 
 def phase_sequence(knn, stats, smi):
@@ -2718,6 +2739,407 @@ def phase_sequence(knn, stats, smi):
     return totals
 
 
+# --- the optimizers' formula on the card ------------------------------------
+
+OPTAX_STEPS = 30
+OPTAX_TOL = 1e-6  # relative, as tests/test_torch_optim.py holds the optimizers
+OPTAX_SHAPES = {"conv": (4, 3, 3, 3), "bias": (4,), "bn": (7,), "fc": (5, 6)}
+
+
+def optax_reference(kind, init, grads, lrs):
+    """optax's update in float64 numpy, transcribed: ``adam``
+    (``scale_by_adam``: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 +
+    b2 nu``, bias-corrected by ``1 - b^count``, ``mu_hat / (sqrt(nu_hat) +
+    eps)``, .9/.999/1e-8) or ``sgd`` (``add_decayed_weights(1e-3)`` then
+    ``trace(0.9)``), then ``-lr`` of the step's schedule and
+    ``apply_updates``. ``init`` ``{name: array}``, ``grads`` a list of such,
+    ``lrs`` one learning rate per update. tests/test_torch_optim.py holds
+    it against optax itself."""
+    import numpy as np
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    out = {}
+    for name, p0 in init.items():
+        p = np.asarray(p0, np.float64)
+        mu, nu = np.zeros_like(p), np.zeros_like(p)
+        for t, (g_all, lr) in enumerate(zip(grads, lrs)):
+            g = np.asarray(g_all[name], np.float64)
+            if kind == "adam":
+                mu = (1 - b1) * g + b1 * mu
+                nu = (1 - b2) * g * g + b2 * nu
+                c = t + 1
+                u = (mu / (1 - b1 ** c)) / (np.sqrt(nu / (1 - b2 ** c)) + eps)
+            else:
+                mu = (g + 1e-3 * p) + 0.9 * mu
+                u = mu
+            p = p + (-lr) * u
+        out[name] = p
+    return out
+
+
+def _optimizer_run(make, init, grads, cfg, device_schedule):
+    """``OPTAX_STEPS`` updates of the optimizer ``make(params)`` builds, on
+    the card, its learning rate from the config's schedule: the host
+    ``LambdaLR`` or ``DeviceSchedule``'s device tensor. Returns the final
+    parameters (float64 numpy)."""
+    import torch
+
+    from e2eslam_tpu_torch.engine.optim import DeviceSchedule, _lr_lambda
+
+    dev = torch.device("cuda")
+    params = {k: torch.nn.Parameter(torch.tensor(v, device=dev)) for k, v in init.items()}
+    opt = make(list(params.values()))
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, _lr_lambda(cfg.OPTIMIZATION))
+    ds = DeviceSchedule(cfg, opt, sched, dev) if device_schedule else None
+    for g in grads:
+        for k, p in params.items():
+            p.grad = torch.tensor(g[k], device=dev)
+        if ds is None:
+            opt.step()
+            sched.step()
+        else:
+            ds.set_lr()
+            opt.step()
+            ds.stepped()
+    if ds is not None:
+        ds.exit()
+    torch.cuda.synchronize()
+    return {k: p.detach().double().cpu().numpy() for k, p in params.items()}
+
+
+def phase_optimizers(smi):
+    """The optimizers the programs run, on the card, against
+    ``optax_reference``: OPTAX_STEPS updates across a StepLR decay (every
+    10 updates, gamma 0.5, learning rate 1e-2; a zero gradient on one tensor
+    now and then). torch's Adam in its ``capturable`` form under
+    ``DeviceSchedule`` (the program's per-tensor Adam) and in its default
+    form with the host scheduler (the loop's), each held to OPTAX_TOL, and
+    their gap reported; the port's SGD from ``DeviceSchedule`` and from the
+    host scheduler, each held to OPTAX_TOL and the two equal to the bit
+    (loop and program run one code)."""
+    import numpy as np
+    import torch
+
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.optim import SGD
+
+    cfg = load_yaml(default_config_path())
+    cfg.OPTIMIZATION.update({"learning_rate": 1e-2, "schedular": "StepLR",
+                             "schedular_step_size": 10, "schedular_gamma": 0.5})
+    init, grads = optax_inputs()
+    lrs = [1e-2 * 0.5 ** (t // 10) for t in range(OPTAX_STEPS)]
+
+    def gap(got, want):
+        return max(float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+                   for k in want)
+
+    runs = {
+        ("adam", "torch_default"): _optimizer_run(
+            lambda ps: torch.optim.Adam(ps, lr=1e-2), init, grads, cfg, False),
+        ("adam", "torch_capturable_device_lr"): _optimizer_run(
+            lambda ps: torch.optim.Adam(ps, lr=1e-2, capturable=True), init, grads, cfg, True),
+        ("sgd", "port"): _optimizer_run(
+            lambda ps: SGD(ps, lr=1e-2, foreach=True), init, grads, cfg, False),
+        ("sgd", "port_device_lr"): _optimizer_run(
+            lambda ps: SGD(ps, lr=1e-2, foreach=True), init, grads, cfg, True),
+    }
+    want = {kind: optax_reference(kind, init, grads, lrs) for kind in ("adam", "sgd")}
+    line = {"phase": "optimizers", "steps": OPTAX_STEPS, "tolerance": OPTAX_TOL,
+            "nvidia_smi": smi}
+    for (kind, form), got in runs.items():
+        line.setdefault(kind, {})[form] = gap(got, want[kind])
+    line["adam"]["default_vs_capturable"] = gap(runs[("adam", "torch_capturable_device_lr")],
+                                                runs[("adam", "torch_default")])
+    line["sgd"]["host_equals_device_lr"] = all(
+        np.array_equal(runs[("sgd", "port")][k], runs[("sgd", "port_device_lr")][k])
+        for k in init)
+    print(json.dumps(line), flush=True)
+    for kind, forms in line.items():
+        if kind in ("adam", "sgd"):
+            for form, g in forms.items():
+                if form != "default_vs_capturable" and isinstance(g, float) and g > OPTAX_TOL:
+                    fail(f"optimizers: {kind} {form} is {g:.3g} off optax's formula")
+    if not line["sgd"]["host_equals_device_lr"]:
+        fail("optimizers: the port's SGD under DeviceSchedule parts from its host schedule")
+    return line
+
+
+def optax_inputs():
+    """tests/test_torch_optim.py's parameter tree and OPTAX_STEPS gradients
+    (a zero gradient on one tensor now and then), seeded from numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    init = {k: rng.normal(size=s).astype(np.float32) for k, s in OPTAX_SHAPES.items()}
+    grads = [{k: rng.normal(size=s).astype(np.float32) for k, s in OPTAX_SHAPES.items()}
+             for _ in range(OPTAX_STEPS)]
+    for g in grads[::7]:
+        g["bn"][:] = 0.0
+    return init, grads
+
+
+# --- the program over B sequences against the per-event loop ----------------
+
+PROGRAM_B = 4
+PROGRAM_FLAGSHIP_FRAMES = 60
+PROGRAM_PROFILE_FRAMES = 8
+PROGRAM_CHAMFER_FRAMES = 8
+
+
+def _batched_program_run(knn, cfg, seqs, dispatch, *, seedless=False, frame_rows=None):
+    """One ``ParallelAdaptation`` run of ``seqs`` through ``dispatch``
+    (``run_batched``), with deterministic algorithms: the program's replays under
+    ``set_sync_debug_mode("error")`` (a synchronisation raises), the
+    launches each kernel made inside the captured event counted and its
+    calls there recorded (a Recorder with ``frame_rows``). Returns (line,
+    result, the capture's Recorder)."""
+    from e2eslam_tpu_torch.apps.profile_adaptation import run_batched
+
+    captured, rec = {}, Recorder(knn, frame_rows=frame_rows)
+
+    def hook(par):
+        par.par.engines[0].replay_sync_mode = "error"
+        capture = par._capture_event
+
+        def counted(*args, **kw):
+            before = launch_counts(knn)
+            with rec:
+                graph = capture(*args, **kw)
+            captured.update({k: n - before[k] for k, n in launch_counts(knn).items()})
+            return graph
+
+        par._capture_event = counted
+
+    with algorithms(True), _seedless() if seedless else contextlib.nullcontext():
+        line, out = run_batched(cfg, seqs, dispatch=dispatch, runner_hook=hook)
+    replays = max(out["num_events"] - 2, 0) if out["graphs"] else 0
+    eager = launch_counts(knn)
+    line["launches"] = {k: n - captured.get(k, 0) + captured.get(k, 0) * replays
+                        for k, n in eager.items()}
+    line.update(captured_launches=captured, replays=replays, seedless=seedless)
+    return line, out, rec
+
+
+def _batched_equal(a, b):
+    """Whether two runs' sequences agree to the bit: keyframes, every
+    keyframe's metrics, map points, estimated poses."""
+    import numpy as np
+
+    return all(x["keyframes"] == y["keyframes"] and x["metrics"] == y["metrics"]
+               and x["map_points"] == y["map_points"]
+               and np.array_equal(x["est_poses"], y["est_poses"])
+               for x, y in zip(a["per_sequence"], b["per_sequence"]))
+
+
+def _batched_gaps(prog, loop):
+    """Per sequence: keyframes equal, the first two keyframes' relative
+    abs_rel gap, the mean abs_rel gap, the map gap."""
+    gaps = []
+    for x, y in zip(prog["per_sequence"], loop["per_sequence"]):
+        rel = [abs(a - b) / b for a, b in zip(x["per_pair_abs_rel"], y["per_pair_abs_rel"])]
+        gaps.append({"keyframes_equal": x["keyframes"] == y["keyframes"],
+                     "first_two_rel_gap": rel[:2], "max_rel_gap": max(rel or [0.0]),
+                     "mean_gap": abs(x["mean_abs_rel"] - y["mean_abs_rel"]),
+                     "map_gap": abs(x["map_points"] - y["map_points"])})
+    return gaps
+
+
+def commit_select_ms(cfg, b, reps=20):
+    """The masked commit's selects (``parallel/mesh.py::save_rows`` and
+    ``commit_rows``: a copy of each stepped tensor of ``b`` stacked networks
+    and of its Adam moments, then a ``where`` over each), captured as a CUDA
+    graph as the program runs them, one replay timed with CUDA events (the
+    median of ``reps``): what an all-active graph without them would save a
+    step. Returns (ms, bytes kept)."""
+    import torch
+
+    from e2eslam_tpu_torch.models.depth_net import make_depth_model
+    from e2eslam_tpu_torch.parallel.mesh import ParallelRefinement, commit_rows, save_rows
+
+    pr = ParallelRefinement(cfg, make_depth_model(cfg), map_capacity=1, n_seq=b)
+    state = pr.init_state()
+    for p in state.params.values():
+        if p.requires_grad:
+            p.grad = torch.randn_like(p) * 1e-3
+    pr._commit(state, None)  # the optimizer makes its state
+    mask = torch.ones(b, dtype=torch.bool, device=pr.device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        commit_rows(save_rows(state.optimizer), mask)  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        saved = save_rows(state.optimizer)
+        commit_rows(saved, mask)
+    kept = sum(t.numel() * t.element_size() for t, _ in saved)
+    return timed(graph.replay, reps), kept
+
+
+def phase_batched_program(knn, stats, smi):
+    """``ParallelAdaptation.run(dispatch="whole")``, the program over B =
+    PROGRAM_B sequences (on the card events 0-1 eager, then one captured
+    CUDA graph replayed), against its per-event loop (``dispatch="event"``),
+    with deterministic algorithms:
+      * the default config, BATCHED_FRAMES ragged frames
+        (``_batched_sequences``): seedless with the fused Adam, equal to the
+        bit; as it ships (seeds, the per-tensor Adam), equal keyframes and
+        the first keyframe within SEQUENCE_FIRST_TOL, the later gaps and the
+        mean's against SEQUENCE_MEAN_TOL reported (each event's first search
+        is seeded by the previous event in the program, from the map's tail
+        in the loop, a near-tie picked otherwise moves later keyframes, and
+        the program's Adam rounds in its capturable form, as the shipped
+        single-sequence runs of ``phase_sequence``); no synchronisation
+        inside a replay; the captured event launches the candidate kernel,
+        and one captured call is held against its plain version;
+      * the chamfer config (``chamfer_config``) on the same sequences'
+        first PROGRAM_CHAMFER_FRAMES frames, as it ships: equal keyframes;
+        its captured map->frame search launches the resident kernel, one
+        captured call held against its plain version;
+      * the flagship settings (``flagship_config``), PROGRAM_FLAGSHIP_FRAMES
+        frames of ``make_sequences``: no KNN, the fused Adam: equal to the
+        bit.
+    Then, with the default algorithms, each config timed (program, loop,
+    loop, program for the default config, program and loop for the
+    flagship: aggregate steps/s, ``capture_s``) and
+    PROGRAM_PROFILE_FRAMES frames of each under the profiler
+    (``profile_batched``: idle share, host syncs, host launch calls and
+    device kernels an event), and the masked commit's selects timed
+    (``commit_select_ms``). Returns the shipped program run's device
+    launches per kernel (eager launches plus captured ones times replays)."""
+    from e2eslam_tpu_torch.apps.profile_adaptation import (
+        chamfer_config,
+        flagship_config,
+        make_sequences,
+        profile_batched,
+        run_batched,
+    )
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+
+    t0 = time.perf_counter()
+    cfg = _batched_cfg()
+    _, seqs = _batched_sequences(PROGRAM_B)
+    for dispatch in ("whole", "event"):  # warm-up: cuDNN's first calls
+        run_batched(cfg, tuple(x[:, :4] if x.ndim > 3 else x for x in seqs), dispatch=dispatch)
+
+    # Seedless with the fused Adam: the same function, to the bit.
+    fused = _batched_cfg()
+    fused.OPTIMIZATION.fused_update = True
+    p, prog, _ = _batched_program_run(knn, fused, seqs, "whole", seedless=True)
+    l, loop, _ = _batched_program_run(knn, fused, seqs, "event", seedless=True)
+    equal = _batched_equal(prog, loop)
+    print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                      "run": "default_seedless_fused",
+                      "program": p, "loop": l, "bitwise_equal": equal,
+                      "gaps": _batched_gaps(prog, loop)}), flush=True)
+    if p["dispatch"] != "whole" or p["graphs"] != 1:
+        fail(f"batched_program: the program ran {p['dispatch']} with {p['graphs']} graphs")
+    if not equal:
+        fail("batched_program default_seedless_fused: the program parts from the loop")
+
+    # As it ships: seeds threaded, the per-tensor Adam.
+    p, prog, rec = _batched_program_run(knn, cfg, seqs, "whole")
+    l, loop, _ = _batched_program_run(knn, cfg, seqs, "event")
+    gaps = _batched_gaps(prog, loop)
+    print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                      "run": "default", "program": p, "loop": l, "gaps": gaps,
+                      "mean_within_tol": all(g["mean_gap"] <= SEQUENCE_MEAN_TOL for g in gaps),
+                      "nvidia_smi": smi}), flush=True)
+    for i, g in enumerate(gaps):
+        if not g["keyframes_equal"]:
+            fail(f"batched_program default: sequence {i} chose other keyframes")
+        if g["first_two_rel_gap"][0] > SEQUENCE_FIRST_TOL:
+            fail(f"batched_program default: sequence {i} parts from the loop: {g}")
+    if len(set(p["keyframes"])) < 2:
+        fail(f"batched_program: the schedules are not ragged: {p['keyframes']}")
+    if p["captured_launches"].get("cand", 0) == 0:
+        fail("batched_program: the captured event launches no cand kernel")
+    args = rec.calls["cand"][1]
+    if not knn.is_device_count(args[-2]):
+        fail("batched_program: the captured cand call took a host count")
+    compare_call(knn, "cand", args, "batched_program captured (device counts)", stats,
+                 stats_key="cand_batched_program")
+    launches = p["launches"]
+
+    # The chamfer (its map->frame search on the resident kernel inside the
+    # graph; every later step-0 search is seeded by the previous event, so
+    # the tail seed's resident call runs at event 0 alone), as it ships.
+    ccfg = chamfer_config(_batched_cfg())
+    ccfg.DEMO.frame_threshold = cfg.DEMO.frame_threshold  # the sequences' schedules
+    ccfg.DEMO.sequence_length = PROGRAM_CHAMFER_FRAMES
+    cseqs = tuple(x[:, :PROGRAM_CHAMFER_FRAMES] if x.ndim > 3 else x for x in seqs)
+    cp, cprog, crec = _batched_program_run(knn, ccfg, cseqs, "whole", frame_rows=320 * 256)
+    cl, cloop, _ = _batched_program_run(knn, ccfg, cseqs, "event")
+    cgaps = _batched_gaps(cprog, cloop)
+    print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                      "run": "chamfer", "program": cp,
+                      "loop": cl, "gaps": cgaps, "nvidia_smi": smi}), flush=True)
+    if not all(g["keyframes_equal"] for g in cgaps):
+        fail("batched_program chamfer: the program chose other keyframes than the loop")
+    if cp["captured_launches"].get("resident", 0) == 0:
+        fail("batched_program chamfer: the captured event launches no resident kernel")
+    ba = crec.calls["resident:ba"][1]
+    if not knn.is_device_count(ba[-3]):
+        fail("batched_program chamfer: the captured map->frame call took a host count")
+    compare_call(knn, "resident", ba, "batched_program captured b->a (device counts)", stats,
+                 plain=resident_plain_by_tiles(knn), stats_key="resident_batched_program")
+    for key in launches:
+        launches[key] += cp["launches"][key]
+
+    fcfg = flagship_config(load_yaml(default_config_path()))
+    fcfg.DEMO.sequence_length = PROGRAM_FLAGSHIP_FRAMES
+    fseqs = make_sequences(PROGRAM_B, PROGRAM_FLAGSHIP_FRAMES, 256, 320)
+    print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                      "run": "flagship sequences made"}), flush=True)
+    fp, fprog, _ = _batched_program_run(knn, fcfg, fseqs, "whole")
+    fl, floop, _ = _batched_program_run(knn, fcfg, fseqs, "event")
+    fequal = _batched_equal(fprog, floop)
+    print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                      "run": "flagship", "program": fp,
+                      "loop": fl, "bitwise_equal": fequal, "gaps": _batched_gaps(fprog, floop),
+                      "nvidia_smi": smi}), flush=True)
+    if not fequal:
+        fail("batched_program flagship: the program parts from the loop")
+    if any(fp["launches"].values()):
+        fail(f"batched_program flagship: KNN launches {fp['launches']}")
+
+    # Default algorithms: timed in turns, then profiled.
+    for name, c, x, turns in (("default", cfg, seqs, ("whole", "event", "event", "whole")),
+                              ("flagship", fcfg, fseqs, ("whole", "event"))):
+        timed_runs = []
+        for dispatch in turns:
+            line, _ = run_batched(c, x, dispatch=dispatch)
+            timed_runs.append({k: line[k] for k in (
+                "dispatch", "aggregate_steps_per_sec", "steps_per_sec_no_capture", "elapsed_s",
+                "capture_s", "graphs", "refine_steps", "events", "mean_abs_rel")})
+        cut = tuple(v[:, :PROGRAM_PROFILE_FRAMES] if v.ndim > 3 else v for v in x)
+        profiled = {}
+        for dispatch in ("whole", "event"):
+            pr = profile_batched(c, cut, dispatch)
+            profiled[dispatch] = {k: pr[k] for k in (
+                "events", "aggregate_steps_per_sec", "capture_s", "device_idle_share",
+                "host_syncs_per_event", "host_launch_calls_per_event",
+                "device_launches_per_event", "device_busy_ms", "wall_ms",
+                "device_ms_by_family")}
+        whole = [r["aggregate_steps_per_sec"] for r in timed_runs if r["dispatch"] == "whole"]
+        event = [r["aggregate_steps_per_sec"] for r in timed_runs if r["dispatch"] == "event"]
+        print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                      "run": f"{name}_timed", "B": PROGRAM_B,
+                          "frames": int(c.DEMO.sequence_length), "timed": timed_runs,
+                          "speedup": sum(whole) / sum(event),
+                          "profiled_frames": PROGRAM_PROFILE_FRAMES, "profiled": profiled,
+                          "nvidia_smi": smi}), flush=True)
+    # What an all-active graph without the selects would save, per step.
+    for name, c in (("default", cfg), ("flagship", fcfg)):
+        select_ms, kept = commit_select_ms(c, PROGRAM_B)
+        print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                          "run": f"{name}_commit_select", "B": PROGRAM_B,
+                          "select_ms_a_step": select_ms, "bytes_kept": kept,
+                          "bound_ms": 5 * kept / PEAK_BYTES * 1e3, "nvidia_smi": smi}),
+              flush=True)
+    return launches
+
+
 OFFLINE_REPEATABLE = {"scale": phase_scale, "scaling_tools": phase_scaling_tools}
 
 
@@ -2739,7 +3161,8 @@ def small_repeats(n, names, knn=None, smi=None):
 def run_phases(knn, names, smi):
     """Only the named phases (``icl``, ``compact``, ``train_depth``, ``oft``,
     ``scale``, ``scaling_tools``, ``recover``, ``demo``, ``batched``,
-    ``sharded``, ``sequence``, ``small:CONFIG``),
+    ``sharded``, ``sequence``, ``optimizers``, ``batched_program``,
+    ``small:CONFIG``),
     each checked as in the full run; no kernels line and no result line."""
     stats = {}
     offline = {"train_depth": lambda: phase_train_depth(knn, stats, smi),
@@ -2755,6 +3178,10 @@ def run_phases(knn, names, smi):
             phase_sharded(knn, stats)
         elif name == "sequence":
             phase_sequence(knn, stats, smi)
+        elif name == "batched_program":
+            phase_batched_program(knn, stats, smi)
+        elif name == "optimizers":
+            phase_optimizers(smi)
         elif name == "icl":
             phase_icl(knn, stats, smi)
         elif name == "compact":
@@ -2862,8 +3289,11 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
     # 12. several sequences at once on the card; the map-sharded search
     batched_launches = phase_batched(knn, stats, smi)
     sharded_launches = phase_sharded(knn, stats)
-    # 13. the whole-sequence program against the loop
+    # 13. the optimizers' formula; the whole-sequence program against the
+    # loop; the program over B sequences against the per-event loop
+    phase_optimizers(smi)
     sequence_launches = phase_sequence(knn, stats, smi)
+    batched_program_launches = phase_batched_program(knn, stats, smi)
     # 14. small input, card vs CPU
     for config in SMALL_CONFIGS:
         phase_small(config)
@@ -2896,6 +3326,7 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
                         "batched_launches": batched_launches[key],
                         "sharded_launches": sharded_launches[key],
                         "sequence_launches": sequence_launches[key],
+                        "batched_program_launches": batched_program_launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                         "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),

@@ -5,7 +5,7 @@
         [--workload config|chamfer|flagship|gradicp|compact|icl|batched]
         [--set SECTION.key=value ...] [--runs 1] [--deterministic]
         [--profile_frames 12] [--loop keyframe|sequence ...] [--n_seq 1 2 4]
-        [--out DIR]
+        [--dispatch whole|event ...] [--out DIR]
 
 Three runs of the config's main path, each on a fresh runner with the same
 seeded weights, after the kernels are built, for each way of running it
@@ -48,12 +48,15 @@ run; with ``--out DIR`` also writes them to ``DIR/profile.json``.
 sequences adapting at once on the card (``parallel/adaptation.py``, the
 depth networks of all B in one vmapped call), the flagship settings
 (``flagship_config``), B distinct synthetic sequences with staggered
-starts (``make_sequences``: ragged schedules). For each B of ``--n_seq``:
+starts (``make_sequences``: ragged schedules). For each B of ``--n_seq`` and
+each ``--dispatch`` (default ``event``, the per-event loop; ``whole`` the
+program over the B sequences, its warm events one CUDA graph's replays):
 a warm-up over each sequence's first 4 frames, then ``--runs`` timed runs,
 each printing the aggregate steps/s (every sequence's refinement steps
-over the synchronised wall clock of the run), each sequence's keyframes,
-mean abs_rel and map points, and the card's name and power limit. No
-profiled run.
+over the synchronised wall clock of the run), the graphs captured and
+``capture_s``, each sequence's keyframes, mean abs_rel and map points, and
+the card's name and power limit; then ``--profile_frames`` frames of each
+dispatch under the profiler, as step 3 above (``profile_batched``).
 """
 
 from __future__ import annotations
@@ -231,21 +234,27 @@ def make_sequences(b, seq_len, h, w, dilation=2):
     return np.stack(colors), np.stack(depths), np.stack(intr), np.stack(poses)
 
 
-def run_batched(cfg, sequences, weights=None):
+def run_batched(cfg, sequences, weights=None, dispatch="event", runner_hook=None):
     """One ``ParallelAdaptation`` run of ``sequences`` on the card with the
-    seeded network (or ``weights``), launches counted. Returns (the run's
+    seeded network (or ``weights``) through ``dispatch``, launches counted;
+    ``runner_hook(par)`` sees the runner before it runs. Returns (the run's
     line, the runner's result)."""
     b, L, h, w = sequences[0].shape[:4]
     for k in knn_ops.KERNELS:
         k.launches = 0
     model = make_depth_model(cfg)
     par = ParallelAdaptation(cfg, model, map_capacity=L * h * w, n_seq=b)
+    if runner_hook is not None:
+        runner_hook(par)
     out = par.run(par.init_state(weights), sequences,
-                  threshold=float(cfg.DEMO.frame_threshold))
+                  threshold=float(cfg.DEMO.frame_threshold), dispatch=dispatch)
     seqs = out["per_sequence"]
-    return {"B": b, "frames": L, "events": out["num_events"],
+    busy = out["elapsed_s"] - out["capture_s"]
+    return {"B": b, "frames": L, "dispatch": out["dispatch"], "events": out["num_events"],
             "refine_steps": out["refine_steps"], "elapsed_s": out["elapsed_s"],
             "aggregate_steps_per_sec": out["steps_per_sec"],
+            "graphs": out["graphs"], "capture_s": out["capture_s"],
+            "steps_per_sec_no_capture": out["refine_steps"] / busy if busy > 0 else 0.0,
             "keyframes": [r["num_keyframes"] for r in seqs],
             "mean_abs_rel": [r["mean_abs_rel"] for r in seqs],
             "map_points": [r["map_points"] for r in seqs],
@@ -255,17 +264,25 @@ def run_batched(cfg, sequences, weights=None):
 def _batched(args, out, smi):
     cfg = _config(args.config_path, "batched", None, args.set)
     h, w, L = int(cfg.DATA.height), int(cfg.DATA.width), int(cfg.DEMO.sequence_length)
-    out["batched"] = []
+    out["batched"], out["profiled"] = [], []
     for b in args.n_seq:
         seqs = make_sequences(b, L, h, w)
-        run_batched(cfg, tuple(x[:, :4] if x.ndim > 3 else x for x in seqs))  # warm-up
+        for dispatch in args.dispatch:  # warm-up
+            run_batched(cfg, tuple(x[:, :4] if x.ndim > 3 else x for x in seqs),
+                        dispatch=dispatch)
         for _ in range(args.runs):
-            torch.cuda.reset_peak_memory_stats()
-            line, _ = run_batched(cfg, seqs)
-            line.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                        nvidia_smi=smi)
-            out["batched"].append(line)
-            print(json.dumps({"batched": line}), flush=True)
+            for dispatch in args.dispatch:
+                torch.cuda.reset_peak_memory_stats()
+                line, _ = run_batched(cfg, seqs, dispatch=dispatch)
+                line.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                            nvidia_smi=smi)
+                out["batched"].append(line)
+                print(json.dumps({"batched": line}), flush=True)
+        cut = tuple(x[:, :args.profile_frames] if x.ndim > 3 else x for x in seqs)
+        for dispatch in args.dispatch:
+            profiled = profile_batched(cfg, cut, dispatch)
+            out["profiled"].append(profiled)
+            print(json.dumps({"profiled": profiled}), flush=True)
     return out
 
 
@@ -324,6 +341,7 @@ def main(argv=None):
     p.add_argument("--profile_frames", type=int, default=12)
     p.add_argument("--loop", choices=sorted(LOOPS), nargs="+", default=[None])
     p.add_argument("--n_seq", type=int, nargs="+", default=[1, 2, 4])
+    p.add_argument("--dispatch", choices=("whole", "event"), nargs="+", default=["event"])
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -381,17 +399,39 @@ def _profiled(config, profile_frames, loop):
     """One run under ``torch.profiler`` and the sync-debug warnings: the
     device's time by kernel family, its idle share, launches and host
     synchronisations per keyframe event."""
-    import warnings
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     # At most the workload's own frames (the icl sequence holds 10).
     frames = min(profile_frames, int(config().DEMO.sequence_length))
+    return profiled_run(lambda: _run(config(frames), loop), lambda r: r["keyframes"])
+
+
+def profile_batched(cfg, sequences, dispatch):
+    """``run_batched`` of ``sequences`` through ``dispatch`` under the
+    profiler (``profiled_run``, device activity alone: B sequences' host
+    operators would swell the trace), per keyframe event (the padded
+    schedule's)."""
+    return profiled_run(lambda: run_batched(cfg, sequences, dispatch=dispatch)[0],
+                        lambda r: r["events"], host_ops=False)
+
+
+def profiled_run(run, events_of, host_ops=True):
+    """``run()`` (returning a line with ``elapsed_s``, its own synchronised
+    clock over the adaptation alone) under ``torch.profiler`` (with the
+    host's operators unless ``host_ops`` is off; the CUDA runtime's calls
+    are traced either way) and the sync-debug warnings: the line with the
+    device's time by kernel family, its idle share, its launches (kernels
+    and copies) and the host's launch calls and synchronisations per event
+    (``events_of(line)`` events)."""
+    import warnings
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with torch.profiler.profile(activities=acts) as prof:
-                profiled = _run(config(frames), loop)
+                profiled = run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchroniz" in str(w.message) for w in caught)
@@ -402,7 +442,7 @@ def _profiled(config, profile_frames, loop):
     busy_us = 0.0
     launches = 0
     host_launches = 0
-    events = max(profiled["keyframes"], 1)
+    events = max(events_of(profiled), 1)
     for evt in prof.key_averages():
         if evt.key in HOST_LAUNCHES:
             host_launches += evt.count
@@ -430,7 +470,6 @@ def _profiled(config, profile_frames, loop):
         "top_kernels_ms_count": kernels[:15],
     })
     return profiled
-
 
 if __name__ == "__main__":
     main()

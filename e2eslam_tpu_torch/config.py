@@ -59,6 +59,20 @@ def load_yaml(path: str) -> Config:
     return Config(data or {})
 
 
+def save_yaml(config: Config, path: str | None = None) -> str:
+    """Write ``config`` as YAML to ``path``, by default
+    ``{SETTINGS.log_path or "."}/{SETTINGS.name or "run"}.yaml`` (the
+    directory made if missing). Returns the path."""
+    if path is None:
+        settings = config.get("SETTINGS", {})
+        log_path = settings.get("log_path") or "."
+        os.makedirs(log_path, exist_ok=True)
+        path = os.path.join(log_path, f"{settings.get('name', 'run')}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config.to_dict(), f, sort_keys=False)
+    return path
+
+
 def default_config_path() -> str:
     """Path of the shipped default config, ``configs/config.yaml``."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

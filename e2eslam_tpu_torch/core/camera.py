@@ -7,6 +7,13 @@ import torch
 Tensor = torch.Tensor
 
 
+def make_intrinsics(fx, fy, cx, cy, dtype=torch.float32, device=None) -> Tensor:
+    """A homogeneous ``[4, 4]`` pinhole intrinsics matrix."""
+    K = torch.eye(4, dtype=dtype, device=device)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = fx, fy, cx, cy
+    return K
+
+
 def inverse_intrinsics(K: Tensor) -> Tensor:
     """Closed-form inverse of homogeneous pinhole intrinsics ``[..., 4, 4]``."""
     fx = K[..., 0, 0]
@@ -32,4 +39,11 @@ def normalize_intrinsics(K: Tensor, width: float = 640.0, height: float = 480.0)
     640 x 480 for ICL and TUM alike)."""
     scale = torch.ones(4, 1, dtype=K.dtype, device=K.device)
     scale[0, 0], scale[1, 0] = 1.0 / width, 1.0 / height
+    return K * scale
+
+
+def scale_intrinsics(K: Tensor, sx: float, sy: float) -> Tensor:
+    """Intrinsics for images resized by (``sx``, ``sy``): the first row
+    times ``sx``, the second times ``sy``."""
+    scale = torch.tensor([[sx], [sy], [1.0], [1.0]], dtype=K.dtype, device=K.device)
     return K * scale

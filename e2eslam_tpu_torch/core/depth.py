@@ -22,3 +22,10 @@ def disp_to_depth(disp: Tensor, min_depth: float, max_depth: float) -> Tensor:
 def indoor_disp_to_depth(disp: Tensor) -> Tensor:
     """Indoor network disparity -> depth (plain inversion)."""
     return 1.0 / disp
+
+
+def scale_by_focal(depth: Tensor, focal_data, focal_pretrain: float) -> Tensor:
+    """Depth rescaled by a focal-length ratio (CNN-SLAM's rule,
+    ``training_utils.py:142-152``): ``depth * (focal_data /
+    focal_pretrain)``; ``focal_data`` a number or a 0-d tensor."""
+    return depth * (focal_data / focal_pretrain)

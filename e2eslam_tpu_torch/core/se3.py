@@ -158,6 +158,11 @@ def camera_center(pose: Tensor) -> Tensor:
     return -(R.transpose(-1, -2) @ t[..., None])[..., 0]
 
 
+def frame_distance(prev_pose: Tensor, cur_pose: Tensor) -> Tensor:
+    """Euclidean distance between two poses' ``camera_center``s."""
+    return torch.linalg.norm(camera_center(prev_pose) - camera_center(cur_pose), dim=-1)
+
+
 def transform_points(T: Tensor, points: Tensor) -> Tensor:
     """Apply rigid transform(s) ``[..., 4, 4]`` to points ``[..., N, 3]``."""
     R = T[..., :3, :3]

@@ -4,14 +4,18 @@
 scene, or ICL-NUIM and TUM sequences from ``{DATA.data_path}/ICL`` and
 ``{DATA.data_path}/TUM`` (``DATA.trajectories`` picks trajectory
 directories by name); ``load_batch`` stacks windows into numpy batches with
-colors scaled to [0, 1] (the reference divides by 255 in every app).
+colors scaled to [0, 1] (the reference divides by 255 in every app);
+``prefetch_batches`` decodes them on background threads, in order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import queue
+import threading
+from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def make_dataset(config, *, sequence_length: Optional[int] = None):
@@ -51,8 +55,9 @@ def make_dataset(config, *, sequence_length: Optional[int] = None):
     )
 
 
-def load_batch(dataset, indices: Sequence[int]):
-    """Stack windows into a [B, ...] numpy batch.
+def load_batch(dataset, indices: Sequence[int], device=None):
+    """Stack windows into a [B, ...] numpy batch (tensors on ``device`` when
+    one is given).
 
     Returns (colors [B,L,H,W,3] in [0,1], depths [B,L,H,W,1],
     intrinsics [B,4,4], poses [B,L,4,4], transforms [B,L,4,4]), float32.
@@ -63,13 +68,44 @@ def load_batch(dataset, indices: Sequence[int]):
     intrinsics = np.stack([it[2] for it in items])
     poses = np.stack([it[3] for it in items])
     transforms = np.stack([it[4] for it in items])
-    return (
-        colors.astype(np.float32),
-        depths.astype(np.float32),
-        intrinsics.astype(np.float32),
-        poses.astype(np.float32),
-        transforms.astype(np.float32),
-    )
+    batch = tuple(x.astype(np.float32) for x in (colors, depths, intrinsics, poses, transforms))
+    if device is not None:
+        batch = tuple(torch.from_numpy(x).to(device) for x in batch)
+    return batch
+
+
+def prefetch_batches(dataset, batch_indices: Iterable[Sequence[int]], *, num_threads: int = 1,
+                     capacity: int = 2, device=None) -> Iterator:
+    """``load_batch`` of each entry of ``batch_indices``, decoded ahead on
+    ``num_threads`` background threads (round-robin over the entries) and
+    yielded in order; a worker's exception is raised by the iterator.
+    ``num_threads`` 0 decodes in the caller's thread. At most
+    ``max(capacity, num_threads)`` decoded batches wait in the queue."""
+    if num_threads <= 0:
+        for idxs in batch_indices:
+            yield load_batch(dataset, idxs, device=device)
+        return
+    indexed = list(enumerate(batch_indices))
+    q: queue.Queue = queue.Queue(maxsize=max(capacity, num_threads))
+    workers = int(num_threads)
+
+    def worker(shard: int):
+        try:
+            for pos, idxs in indexed[shard::workers]:
+                q.put((pos, load_batch(dataset, idxs, device=device)))
+        except BaseException as exc:  # raised by the consumer
+            q.put((None, exc))
+
+    for w in range(workers):
+        threading.Thread(target=worker, args=(w,), daemon=True).start()
+    pending = {}
+    for pos in range(len(indexed)):
+        while pos not in pending:
+            got, item = q.get()
+            if got is None:
+                raise item
+            pending[got] = item
+        yield pending.pop(pos)
 
 
 class ArrayDataset:

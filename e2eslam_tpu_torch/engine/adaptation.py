@@ -33,7 +33,6 @@ import torch
 from e2eslam_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from e2eslam_tpu_torch.data.pipeline import load_batch, make_dataset
 from e2eslam_tpu_torch.device import resolve_device, set_full_fp32
-from e2eslam_tpu_torch.engine.optim import device_schedule_supported
 from e2eslam_tpu_torch.engine.refine import (
     PairBatch,
     RefinementEngine,
@@ -57,21 +56,16 @@ def sequence_program_blocker(config, *, verbose: bool, use_sequence_program: boo
     program is on, the run is not verbose (its per-step prints read every
     step), 2-frame windows, an association other than the voxel hash (which
     the loop rebuilds on the host) and at least one refinement step. Then
-    the settings the port's program cannot yet replay as a CUDA graph,
-    taken by the loop on every device so that CPU and card agree:
-    ``MODEL.active_window`` (the window's start follows the count),
-    torch's SGD (it reads a tensor learning rate to the host) and the
-    observability outputs (``VIZ.log_gradients``, ``VIZ.tensorboard``,
-    ``DEBUG.plot``: per-step dicts the program does not stack)."""
-    M, L, O = config.MODEL, config.LOSS, config.OPTIMIZATION
+    the observability outputs (``VIZ.log_gradients``, ``VIZ.tensorboard``,
+    ``DEBUG.plot``: per-step dicts the program does not stack), taken by
+    the loop on every device so that CPU and card agree."""
+    L, O = config.LOSS, config.OPTIMIZATION
     checks = (
         (not use_sequence_program, "use_sequence_program is off"),
         (verbose, "verbose run"),
         (int(config.DEMO.get("sequence_length_refinement") or 2) != 2, "F != 2 windows"),
         (str(L.get("knn_impl", "brute")) == "voxel", "LOSS.knn_impl: voxel"),
         (int(O.refinement_steps) <= 0, "no refinement steps"),
-        (bool(M.get("active_window")), "MODEL.active_window"),
-        (not device_schedule_supported(config), f"OPTIMIZATION.optimizer: {O.optimizer}"),
         (bool(config.VIZ.get("log_gradients") or config.VIZ.get("tensorboard")
               or config.DEBUG.get("plot")), "observability outputs"),
     )

@@ -6,10 +6,9 @@ from optax (``e2eslam_tpu/engine/optim.py``), the reference's choices
 
   * Adam (``SparseAdam`` too): optax's Adam (``mu_hat / (sqrt(nu_hat) +
     eps)``, .9/.999/1e-8) is torch's formula, so torch's Adam runs it;
-  * SGD: ``add_decayed_weights(1e-3)`` then ``sgd(momentum=0.9)``, which is
-    torch's SGD with ``weight_decay=1e-3, momentum=0.9, dampening=0`` (the
-    first momentum buffer is the gradient itself, optax's zero trace plus
-    it);
+  * SGD: ``add_decayed_weights(1e-3)`` then ``sgd(momentum=0.9)``:
+    ``SGD`` below, the port's own (torch's SGD reads a tensor learning rate
+    to the host), every parameter decayed;
   * RMSprop: optax's (``nu = 0.9 nu + 0.1 g^2``, ``g / sqrt(nu + 1e-8)``,
     ``nu`` starts at 0); torch's RMSprop (alpha 0.99, eps outside the root)
     computes another function, so ``RMSprop`` below is the port's own;
@@ -22,23 +21,27 @@ Schedules count updates: the caller steps the scheduler after every
 optax's staircase decay, ExponentialLR its continuous one
 (``lr * gamma^count``), MultiStepLR its piecewise-constant schedule, which
 takes the milestones as a dict: a repeated milestone decays once, where
-torch's ``MultiStepLR`` would decay twice.
+torch's ``MultiStepLR`` would decay twice. ``make_lr_schedule`` is the
+schedule itself, a function of the update count.
 
-The whole-sequence program replays its events as a CUDA graph, where a
+The whole-sequence programs replay their events as CUDA graphs, where a
 host schedule would be frozen at capture. ``DeviceSchedule`` runs the same
 schedule on the device: each param group's ``lr`` is a 0-d tensor that
 ``set_lr`` recomputes from a device update count before each update
 (``lr_factor``: ``_lr_lambda`` in tensor ops, as optax's schedule reads
-its count), with torch's Adam in its ``capturable`` form and the port's
-RMSprop and Adagrad scaling by the tensor. torch's SGD reads a tensor
-learning rate to the host, so SGD stays on the per-keyframe loop.
+its count), with torch's Adam in its ``capturable`` form (its step count on
+the device; it rounds the update otherwise than the default form, within
+1e-6 of optax's formula both). The port's own optimizers multiply the
+update by the learning rate, a float or that tensor, in one way
+(``_apply``), so the per-keyframe loop and the program compute the same
+bits.
 
 ``OPTIMIZATION.fused_update`` (the JAX package's ``fuse_update``: the
 optimizer over one flattened parameter vector) changes how the update runs,
 not what it computes: the element-wise formula is the per-tensor one. Here
-it selects the multi-tensor implementations: torch's fused CUDA kernels for
-Adam and SGD on the card, ``foreach`` on the CPU, and ``foreach`` for the
-port's own RMSprop and Adagrad on either.
+it selects the multi-tensor implementations: torch's fused CUDA kernel for
+Adam on the card, ``foreach`` on the CPU, and ``foreach`` for the port's
+own optimizers on either.
 """
 
 from __future__ import annotations
@@ -115,13 +118,36 @@ class RMSprop(_ElementwiseOptimizer):
 
 
 def _apply(params, scale, lr) -> None:
-    """``p <- p - lr * scale``; a tensor ``lr`` (``DeviceSchedule``'s) is
-    multiplied in on the device, never read by the host."""
-    if isinstance(lr, torch.Tensor):
-        torch._foreach_mul_(scale, lr)
-        torch._foreach_sub_(params, scale)
-    else:
-        torch._foreach_add_(params, scale, alpha=-lr)
+    """``p <- p - lr * scale``, optax's ``scale(-lr)`` then
+    ``apply_updates``: the product rounded, then subtracted. A float ``lr``
+    and a float32 tensor one (``DeviceSchedule``'s, multiplied in on the
+    device, never read by the host) of the same value give the same bits."""
+    torch._foreach_mul_(scale, lr)
+    torch._foreach_sub_(params, scale)
+
+
+class SGD(_ElementwiseOptimizer):
+    """``optax.chain(add_decayed_weights(wd), sgd(lr, momentum))``:
+    ``d <- g + wd p``, ``m <- d + momentum m`` (``m`` starting at 0),
+    ``p <- p - lr m``. Dampening 0, no Nesterov."""
+
+    state_keys = ("momentum_buffer",)
+
+    def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 1e-3,
+                 *, foreach: bool = False):
+        super().__init__(params, lr, foreach=foreach, momentum=momentum,
+                         weight_decay=weight_decay)
+
+    def _init_state(self, p):
+        return {"momentum_buffer": torch.zeros_like(p, memory_format=torch.preserve_format)}
+
+    @staticmethod
+    def _update(params, grads, bufs, group):
+        d = torch._foreach_mul(params, group["weight_decay"])
+        torch._foreach_add_(d, grads)
+        torch._foreach_mul_(bufs, group["momentum"])
+        torch._foreach_add_(bufs, d)
+        _apply(params, torch._foreach_mul(bufs, 1.0), group["lr"])
 
 
 class Adagrad(_ElementwiseOptimizer):
@@ -188,12 +214,6 @@ def lr_factor(opt, count: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"OPTIMIZATION.schedular {kind!r}: one of {SCHEDULES}")
 
 
-def device_schedule_supported(config) -> bool:
-    """Whether the optimizer takes ``DeviceSchedule``'s tensor learning
-    rate without a host read: every one but torch's SGD."""
-    return config.OPTIMIZATION.optimizer != "SGD"
-
-
 class DeviceSchedule:
     """The schedule of ``make_optimizer``'s ``LambdaLR`` on the device, for
     updates that a CUDA graph replays. While entered, each param group's
@@ -256,11 +276,26 @@ def make_optimizer(config, params):
     if kind in ("Adam", "SparseAdam"):
         optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, **impl)
     elif kind == "SGD":
-        optimizer = torch.optim.SGD(params, lr=lr, momentum=0.9, dampening=0.0,
-                                    weight_decay=1e-3, **impl)
+        optimizer = SGD(params, lr=lr, foreach=multi)
     elif kind == "RMSprop":
         optimizer = RMSprop(params, lr=lr, foreach=multi)
     else:
         optimizer = Adagrad(params, lr=lr, foreach=multi)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, _lr_lambda(opt))
     return optimizer, scheduler
+
+
+def make_lr_schedule(config):
+    """The learning rate as a function of the update count (optax's
+    ``Schedule``, ``e2eslam_tpu/engine/optim.py:17-38``): a float for an int
+    count, a float64 0-d tensor (device ops alone) for a tensor one."""
+    opt = config.OPTIMIZATION
+    lr = float(opt.learning_rate)
+    lam = _lr_lambda(opt)
+
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            return lr_factor(opt, count) * lr
+        return lr * lam(int(count))
+
+    return schedule

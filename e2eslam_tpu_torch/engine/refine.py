@@ -66,7 +66,7 @@ import torch
 from torch import nn
 
 from e2eslam_tpu_torch.core.camera import inverse_intrinsics, normalize_intrinsics
-from e2eslam_tpu_torch.core.depth import disp_to_depth, indoor_disp_to_depth
+from e2eslam_tpu_torch.core.depth import disp_to_depth, indoor_disp_to_depth, scale_by_focal
 from e2eslam_tpu_torch.core.projection import backproject, project
 from e2eslam_tpu_torch.core.sampling import grid_sample
 from e2eslam_tpu_torch.core.se3 import se3_inverse, transform_points
@@ -329,7 +329,7 @@ class RefinementEngine:
         abl = self.config.ABLATION
         if abl.get("scale_intrinsics", False) and intrinsics is not None:
             # CNN-SLAM-style focal rescaling (reference train_depth.py:317-325).
-            depth = depth * (intrinsics[0, 0] / float(abl.focal_pretrain))
+            depth = scale_by_focal(depth, intrinsics[0, 0], float(abl.focal_pretrain))
         if scale_params is not None:
             depth = depth * scale_params["scale"]
             if "bias" in scale_params:
@@ -877,15 +877,17 @@ class RefinementEngine:
 
     @torch.no_grad()
     def fuse_depth(self, pair: PairBatch, depth: Tensor, map_state: MapState, *,
-                   fuse_prev: bool):
-        """``fuse_pair`` from the network's unscaled depth of ``pair``."""
+                   fuse_prev: bool, active: Optional[Tensor] = None):
+        """``fuse_pair`` from the network's unscaled depth of ``pair``;
+        where ``active`` (a 0-d bool tensor) is False the map is left as it
+        was."""
         depth = self.apply_scaling(depth, pair.gt_depths, pair.intrinsics)
         prev = build_frame(pair.colors[0], depth[0], pair.intrinsics, pair.poses[0])
         if fuse_prev:
-            map_state = self.slam._update_map(map_state, prev)
+            map_state = self.slam._update_map(map_state, prev, active)
         live = build_frame(pair.colors[TARGET], depth[TARGET], pair.intrinsics,
                            pair.poses[TARGET])
-        map_state, est_pose, _ = self.slam.step(map_state, live, prev)
+        map_state, est_pose, _ = self.slam.step(map_state, live, prev, active)
         return map_state, est_pose
 
     def make_empty_map(self) -> MapState:

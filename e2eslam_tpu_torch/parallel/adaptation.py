@@ -7,8 +7,9 @@ whole sequences on it.
   * Each sequence has its own keyframe schedule (camera-center distance,
     reference ``online_adaption.py:186-205``), so the sequences have
     different numbers of keyframe events. The schedules are padded to the
-    longest; an ``active`` mask says which sequences are live at each
-    event, and only their steps and fusions are committed.
+    longest (an exhausted sequence repeats its last event, one with no
+    event pads with (0, 0)); an ``active`` mask says which sequences are
+    live at each event, and only their steps and fusions are committed.
   * Event 0 also fuses each sequence's first frame (``fuse_prev``).
   * With ``MODEL.compact_period`` the maps are compacted after event ``e``
     when ``(e + 1) % compact_period == 0``: projective compaction from each
@@ -19,11 +20,37 @@ whole sequences on it.
     and abs_rel, the mean abs_rel over its own keyframes, the estimated
     keyframe poses, ATE and RPE.
 
-Every sequence runs what ``OnlineAdaptation`` runs (``engine/adaptation.py``:
-the keyframe windows, the sorted map views and their cache, the KNN warm
-starts, compaction), with its own engine; the batching changes only the
-network's call, so a sequence's results equal its solo run's up to the
-rounding of the batched convolution (``tests/test_torch_parallel.py``).
+Two dispatches, as the JAX runner's (``adaptation.py:326-370``):
+
+  * ``event``, the per-event loop: every sequence runs what
+    ``OnlineAdaptation``'s per-keyframe loop runs (the keyframe windows,
+    the sorted, bucketed map views and their cache, the cross-keyframe KNN
+    seeds, compaction), with its own engine, the active mask known on the
+    host; the batching changes only the network's call, so a sequence's
+    results equal its solo loop's up to the rounding of the batched
+    convolution (``tests/test_torch_parallel.py``).
+  * ``whole``, the program over the B local sequences (the JAX
+    ``whole_run``, :208-250): each event is the JAX vmapped event body
+    (:128-156) with nothing read to the host: per sequence a Morton sort of
+    its whole map buffer, R PFT steps seeded by its previous event's final
+    KNN indices and fusion, the networks one vmapped call, every sequence
+    computing and its commits masked on the device. Its inputs (the pairs
+    ``[n, 2]``, the active mask ``[n]``, the event's index) are copied from
+    pinned memory into fixed device tensors, and it writes each event's
+    last-step metrics into ``[n, E]`` buffers and the estimated poses into
+    ``[n, E, 4, 4]``, read once after the last event. On a CUDA card events
+    0 and 1 run eagerly on a side stream, one warm event is captured as a
+    CUDA graph and events 2..E-1 replay it (as
+    ``RefinementEngine.process_sequence`` does for one sequence); on the
+    CPU every event runs eagerly, the same code. Compaction runs eagerly
+    between events, from the counts it reads. A ``data`` axis of D > 1
+    ranks captures one graph per rank; no collective runs inside it.
+  * ``auto`` takes ``event`` at 8 sequences or more (the JAX rule), and
+    wherever ``engine/adaptation.py::sequence_program_blocker`` stops the
+    program (3-frame windows, the voxel association, no refinement step,
+    the observability outputs), decided from the config before the run.
+    A blocked ``whole`` raises.
+
 Each sequence's window is assembled by one row gather over the stacked
 frames (``ops/batched_rows.py::FLAT_ROW_OPS``, the JAX
 ``gather_pairs_flat``).
@@ -31,6 +58,7 @@ frames (``ops/batched_rows.py::FLAT_ROW_OPS``, the JAX
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -39,13 +67,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from e2eslam_tpu_torch.engine.adaptation import KeyframeViews, keyframe_schedule, window_frames
-from e2eslam_tpu_torch.engine.refine import PairBatch
+from e2eslam_tpu_torch.engine.adaptation import (
+    KeyframeViews,
+    keyframe_schedule,
+    sequence_program_blocker,
+    window_frames,
+)
+from e2eslam_tpu_torch.engine.optim import DeviceSchedule
+from e2eslam_tpu_torch.engine.refine import PairBatch, _sync_debug, store_map
 from e2eslam_tpu_torch.losses.trajectory import absolute_trajectory_error, relative_pose_error
 from e2eslam_tpu_torch.ops.batched_rows import FLAT_ROW_OPS
-from e2eslam_tpu_torch.parallel.mesh import Mesh, ParallelRefinement, ParallelState
+from e2eslam_tpu_torch.parallel.mesh import Mesh, ParallelRefinement, ParallelState, local_rows
+from e2eslam_tpu_torch.slam.pointclouds import on_device
 
 DISPATCH = ("whole", "event", "auto")
+WHOLE_MAX_SEQ = 8  # "auto" takes the per-event loop from this many sequences (JAX :338-341)
 
 
 class _SequenceViews(KeyframeViews):
@@ -81,6 +117,21 @@ class ParallelAdaptation:
     def init_maps(self):
         return self.par.init_maps()
 
+    def dispatch_mode(self, dispatch: str = "auto") -> str:
+        """The dispatch a run takes (``whole`` or ``event``), decided from the
+        config and ``n_seq`` alone: ``auto`` is ``event`` at WHOLE_MAX_SEQ
+        sequences or more and wherever ``sequence_program_blocker`` stops
+        the program, else ``whole``; a blocked ``whole`` raises."""
+        if dispatch not in DISPATCH:
+            raise ValueError(f"dispatch must be one of {DISPATCH}, got {dispatch!r}")
+        blocker = sequence_program_blocker(self.config, verbose=False)
+        if dispatch == "auto":
+            return "event" if self.n >= WHOLE_MAX_SEQ or blocker else "whole"
+        if dispatch == "whole" and blocker:
+            raise ValueError(f"dispatch='whole' cannot run this config: {blocker} "
+                             "(the per-event loop, dispatch='event', runs it)")
+        return dispatch
+
     def run(self, state: ParallelState, sequences, *, threshold: float,
             generator: Optional[torch.Generator] = None, dispatch: str = "auto") -> Dict:
         """Adapt every sequence to the end of its schedule.
@@ -93,19 +144,18 @@ class ParallelAdaptation:
           threshold: the keyframe distance (``DEMO.frame_threshold``).
           generator: draws each sequence's seed when given; by default
             sequence ``i`` is seeded with ``SETTINGS.seed + i``.
-          dispatch: ``whole``, ``event`` or ``auto``: how the JAX runner
-            dispatches the run (one program, or one per event). The port
-            has no whole-run program; all three run the same per-event loop
-            and give the same results.
+          dispatch: ``whole`` (the program), ``event`` (the per-event loop)
+            or ``auto`` (``dispatch_mode``).
 
         Returns ``{"state", "maps" (this rank's), "per_sequence" (all N, in
         order), "num_events", "refine_steps", "elapsed_s",
-        "steps_per_sec"}``; ``steps_per_sec`` counts every sequence's steps
-        over this rank's synchronised clock.
+        "steps_per_sec", "dispatch", "graphs", "capture_s"}``;
+        ``steps_per_sec`` counts every sequence's steps over this rank's
+        synchronised clock, ``graphs`` and ``capture_s`` the program's CUDA
+        graphs and their capture time (inside ``elapsed_s``).
         """
-        if dispatch not in DISPATCH:
-            raise ValueError(f"dispatch must be one of {DISPATCH}, got {dispatch!r}")
-        cfg, par = self.config, self.par
+        mode = self.dispatch_mode(dispatch)
+        par = self.par
         dev, n, first = par.device, par.n_local, par.first
         colors, gt_depths, intrinsics, poses = sequences
         N = colors.shape[0]
@@ -122,13 +172,65 @@ class ParallelAdaptation:
         if generator is not None:
             seeds = torch.randint(0, 2**62, (N,), generator=generator).tolist()
         par.reseed(seeds)
+        data = local_rows(self.mesh, self.n, (colors, gt_depths, intrinsics, poses), dev)
+        own = list(range(first, first + n))
+        self._sync()
+        t_start = time.perf_counter()
+        if mode == "whole":
+            maps, keyframes, metrics, est, compactions, info = self._run_program(
+                state, data, [schedules[g] for g in own], E)
+        else:
+            maps, keyframes, metrics, est, compactions = self._run_loop(
+                state, data, [schedules[g] for g in own], E)
+            info = {"graphs": 0, "capture_s": 0.0}
+        self._sync()
+        elapsed = time.perf_counter() - t_start
 
-        def local(x):
-            x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-            return x[first:first + n].to(device=dev, dtype=torch.float32).contiguous()
+        results = []
+        for j, g in enumerate(own):
+            abs_rels = [m["abs_rel"] for m in metrics[j] if m is not None]
+            gt_kf = poses_np[g][np.asarray(keyframes[j], dtype=np.int64)]
+            k = len(keyframes[j])
+            results.append({
+                "num_keyframes": k,
+                "keyframes": keyframes[j],
+                "metrics": metrics[j],
+                "per_pair_abs_rel": abs_rels,
+                "mean_abs_rel": float(np.mean(abs_rels)) if abs_rels else float("nan"),
+                "est_poses": est[j],
+                "ate": absolute_trajectory_error(gt_kf, est[j]) if k >= 2 else float("nan"),
+                "rpe": relative_pose_error(gt_kf, est[j]) if k >= 2 else float("nan"),
+                "map_points": int(maps[j].count),
+                "compactions": compactions[j],
+            })
+        if self.mesh.size > 1:
+            # The only collective of the run: every rank's results, in rank
+            # order (the sequences' order).
+            gathered = [None] * self.mesh.size
+            dist.all_gather_object(gathered, results, group=self.mesh.group)
+            results = [r for part in gathered for r in part]
+        total_steps = self.R * sum(counts)
+        return {
+            "state": state,
+            "maps": maps,
+            "per_sequence": results,
+            "num_events": E,
+            "refine_steps": total_steps,
+            "elapsed_s": elapsed,
+            "steps_per_sec": total_steps / elapsed if elapsed > 0 else 0.0,
+            "dispatch": mode,
+            "graphs": info["graphs"],
+            "capture_s": info["capture_s"],
+        }
 
-        colors, gt_depths, K, poses = (local(x) for x in (colors, gt_depths, intrinsics, poses))
-        own = range(first, first + n)
+    def _run_loop(self, state, data, schedules, E):
+        """The per-event loop over the local sequences' ``schedules``.
+        Returns (maps, keyframes, metrics, estimated poses, compactions),
+        one entry per local sequence, metrics and poses on the host."""
+        cfg, par = self.config, self.par
+        n = par.n_local
+        colors, gt_depths, K, poses = data
+        counts = [len(s) for s in schedules]
         views = [_SequenceViews(cfg, engine, par.map_capacity) for engine in par.engines]
         maps = self.init_maps()
         kf_hist = [[0] for _ in range(n)]
@@ -139,15 +241,10 @@ class ParallelAdaptation:
         warm = par.engines[0].warm
         compact_period = int(cfg.MODEL.get("compact_period", 0) or 0)
         voxel = str(cfg.MODEL.get("compact_mode", "voxel") or "voxel") == "voxel"
-        self._sync()
-        t_start = time.perf_counter()
         for e in range(E):
-            act = [e < counts[g] for g in own]
+            act = [e < c for c in counts]
             if any(act):
-                # Exhausted sequences repeat their last event; a sequence
-                # with no event pads with (0, 0). Their work is not committed.
-                events = [schedules[g][min(e, counts[g] - 1)] if counts[g] else (0, 0)
-                          for g in own]
+                events = _padded_events(schedules, e)
                 windows = [window_frames(kf_hist[j], events[j][1], self.F_ref)
                            for j in range(n)]
                 pairs = self._gather(colors, gt_depths, K, poses, windows)
@@ -183,46 +280,153 @@ class ParallelAdaptation:
                         maps[j], done = views[j].maybe_compact(e, frame, maps[j], pose, K[j])
                         if done:
                             last_kc[j] = None
-        self._sync()
-        elapsed = time.perf_counter() - t_start
+        metrics = [[None if m is None else {k: float(v) for k, v in m.items()} for m in pp]
+                   for pp in per_pair]
+        est = [torch.stack(p).cpu().numpy() if p else np.zeros((0, 4, 4), np.float32)
+               for p in est_poses]
+        return maps, keyframes, metrics, est, [v.compactions for v in views]
 
-        results = []
-        for j, g in enumerate(own):
-            metrics = [None if m is None else {k: float(v) for k, v in m.items()}
-                       for m in per_pair[j]]
-            abs_rels = [m["abs_rel"] for m in metrics if m is not None]
-            est = (torch.stack(est_poses[j]).cpu().numpy() if est_poses[j]
-                   else np.zeros((0, 4, 4), np.float32))
-            gt_kf = poses_np[g][np.asarray(keyframes[j], dtype=np.int64)]
-            k = len(keyframes[j])
-            results.append({
-                "num_keyframes": k,
-                "keyframes": keyframes[j],
-                "metrics": metrics,
-                "per_pair_abs_rel": abs_rels,
-                "mean_abs_rel": float(np.mean(abs_rels)) if abs_rels else float("nan"),
-                "est_poses": est,
-                "ate": absolute_trajectory_error(gt_kf, est) if k >= 2 else float("nan"),
-                "rpe": relative_pose_error(gt_kf, est) if k >= 2 else float("nan"),
-                "map_points": int(maps[j].count),
-                "compactions": views[j].compactions,
-            })
-        if self.mesh.size > 1:
-            # The only collective of the run: every rank's results, in rank
-            # order (the sequences' order).
-            gathered = [None] * self.mesh.size
-            dist.all_gather_object(gathered, results, group=self.mesh.group)
-            results = [r for part in gathered for r in part]
-        total_steps = self.R * sum(counts)
-        return {
-            "state": state,
-            "maps": maps,
-            "per_sequence": results,
-            "num_events": E,
-            "refine_steps": total_steps,
-            "elapsed_s": elapsed,
-            "steps_per_sec": total_steps / elapsed if elapsed > 0 else 0.0,
-        }
+    def _run_program(self, state, data, schedules, E):
+        """The program over the local sequences' ``schedules`` (the JAX
+        ``whole_run``). Returns (maps, keyframes, metrics, estimated poses,
+        compactions, info ``{"graphs", "capture_s"}``), as ``_run_loop``."""
+        cfg, par = self.config, self.par
+        dev, n = par.device, par.n_local
+        cuda = dev.type == "cuda"
+        colors, gt_depths, K, poses = data
+        counts = [len(s) for s in schedules]
+        maps = [on_device(m) for m in self.init_maps()]
+        events = [_padded_events(schedules, e) for e in range(E)]
+        pairs_h = torch.tensor(events, dtype=torch.int64)  # [E, n, 2]
+        act_h = torch.tensor([[e < c for c in counts] for e in range(E)])  # [E, n]
+        ev_h = torch.arange(E, dtype=torch.int64)[:, None]
+        if cuda:
+            pairs_h, act_h, ev_h = pairs_h.pin_memory(), act_h.pin_memory(), ev_h.pin_memory()
+        # The graph's inputs: written from pinned memory before each event.
+        pi = torch.zeros(n, 2, dtype=torch.int64, device=dev)
+        act = torch.zeros(n, dtype=torch.bool, device=dev)
+        ev_i = torch.zeros(1, dtype=torch.int64, device=dev)
+        ins = (pi, act, ev_i)
+        out: Dict[str, torch.Tensor] = {}
+        est = torch.zeros(n, E, 4, 4, dtype=poses.dtype, device=dev)
+        carry: Dict = {}
+        info = {"graphs": 0, "capture_s": 0.0}
+        compactions: List[List[Dict]] = [[] for _ in range(n)]
+        period = int(cfg.MODEL.get("compact_period", 0) or 0)
+        voxel = str(cfg.MODEL.get("compact_mode", "voxel") or "voxel") == "voxel"
+        seq = (colors, gt_depths, K, poses)
+        if cuda:
+            par._schedule = DeviceSchedule(cfg, state.optimizer, state.scheduler, dev)
+        side = torch.cuda.Stream(device=dev) if cuda else None
+        if cuda:
+            side.wait_stream(torch.cuda.current_stream(dev))
+        sync_mode = par.engines[0].replay_sync_mode
+        graph = None
+        try:
+            for e in range(E):
+                warm = cuda and e >= 2
+                ctx = torch.cuda.stream(side) if cuda and not warm else contextlib.nullcontext()
+                with ctx:
+                    if warm and graph is None:
+                        torch.cuda.current_stream(dev).wait_stream(side)
+                        graph = self._capture_event(state, seq, ins, maps, carry, out, est,
+                                                    info)
+                    if warm:
+                        with _sync_debug(sync_mode):
+                            self._feed(ins, pairs_h[e], act_h[e], ev_h[e])
+                            graph.replay()
+                    else:
+                        self._feed(ins, pairs_h[e], act_h[e], ev_h[e])
+                        self._event(state, seq, ins, maps, carry, out, est, fuse_prev=e == 0)
+                    if period and (e + 1) % period == 0:
+                        for j in range(n):
+                            if e < counts[j] or voxel:
+                                before, after = par.engines[j].compact_in_place(
+                                    maps[j], est[j, e], K[j])
+                                frame = events[e][j][1]
+                                compactions[j].append({"keyframe": e, "frame": frame,
+                                                       "before": before, "after": after})
+            if cuda and graph is None:
+                torch.cuda.current_stream(dev).wait_stream(side)
+        finally:
+            if par._schedule is not None:
+                par._schedule.exit()
+                par._schedule = None
+        names = sorted(out)
+        table = (torch.stack([out[k].double() for k in names]).cpu().numpy() if names
+                 else np.zeros((0, n, E)))
+        est_np = est.cpu().numpy()
+        keyframes = [[c for _, c in s] for s in schedules]
+        metrics = [[{k: float(table[i, j, e]) for i, k in enumerate(names)}
+                    for e in range(counts[j])] for j in range(n)]
+        maps = [dataclasses.replace(m, count=int(m.count),
+                                    kf_counter=None if m.kf_counter is None
+                                    else int(m.kf_counter)) for m in maps]
+        return (maps, keyframes, metrics, [est_np[j, :counts[j]] for j in range(n)],
+                compactions, info)
+
+    @staticmethod
+    def _feed(ins, pairs, act, ev) -> None:
+        """One event's inputs into the program's fixed device tensors."""
+        for dst, src in zip(ins, (pairs, act, ev)):
+            dst.copy_(src, non_blocking=True)
+
+    def _event(self, state, seq, ins, maps, carry, out, est, *, fuse_prev: bool) -> None:
+        """One event of the program (the JAX vmapped ``event_body``,
+        adaptation.py:128-156): every local sequence's pair gathered in one
+        row gather, its whole map buffer sorted, R PFT steps seeded by its
+        previous event's final KNN cache, then fusion, committed where the
+        active mask is set. Everything it keeps is written in place (the
+        maps, ``carry["kc"]``, row ``ev_i`` of ``out``'s ``[n, E]`` buffers
+        and of ``est``), so a CUDA graph of it replays against the same
+        tensors."""
+        par = self.par
+        pi, act, ev_i = ins
+        colors, gt_depths, K, poses = seq
+        take = FLAT_ROW_OPS.take
+        pairs = PairBatch(colors=take(colors, pi), gt_depths=take(gt_depths, pi), intrinsics=K,
+                          poses=take(poses, pi))
+        index = [engine.build_map_index(m) for engine, m in zip(par.engines, maps)]
+        warm = par.engines[0].warm
+        kc = carry.get("kc") if warm else None
+        metrics = None
+        for r in range(self.R):
+            metrics, caches = par.refine_step(state, pairs, maps, map_indices=index,
+                                              knn_init=kc, thread_knn=warm, step=r, active=act)
+            if warm:
+                kc = caches
+        new, est_e = par.fuse_pair(state, pairs, maps, fuse_prev=fuse_prev, active=act)
+        for name in metrics[0]:
+            value = torch.stack([m[name].reshape(()) for m in metrics])
+            if name not in out:
+                out[name] = torch.zeros(est.shape[:2], dtype=value.dtype, device=value.device)
+            out[name].index_copy_(1, ev_i, value[:, None])
+        est.index_copy_(1, ev_i, torch.stack(est_e)[:, None].to(est.dtype))
+        for m, m_new in zip(maps, new):
+            store_map(m, m_new)
+        if kc is not None:
+            if carry.get("kc") is None:
+                carry["kc"] = [{k: v.clone() for k, v in c.items()} for c in kc]
+            else:
+                for dst, src in zip(carry["kc"], kc):
+                    for k, v in src.items():
+                        dst[k].copy_(v)
+
+    def _capture_event(self, state, seq, ins, maps, carry, out, est, info):
+        """Capture one warm event (no fusion of the previous frame) as a CUDA
+        graph; each sequence's random draws, if any, from its engine's
+        generator."""
+        L = self.config.LOSS
+        graph = torch.cuda.CUDAGraph()
+        if L.get("supervise_depth") or (L.get("auto_masking") and L.get("min_reprojection")):
+            for engine in self.par.engines:
+                graph.register_generator_state(engine.generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self._event(state, seq, ins, maps, carry, out, est, fuse_prev=False)
+        info["capture_s"] += time.perf_counter() - t0
+        info["graphs"] += 1
+        return graph
 
     @staticmethod
     def _gather(colors, gt_depths, K, poses, frames) -> PairBatch:
@@ -236,3 +440,9 @@ class ParallelAdaptation:
     def _sync(self):
         if self.par.device.type == "cuda":
             torch.cuda.synchronize(self.par.device)
+
+
+def _padded_events(schedules, e: int):
+    """Event ``e`` of every schedule: an exhausted schedule repeats its last
+    event, an empty one pads with (0, 0); their work is not committed."""
+    return [s[min(e, len(s) - 1)] if s else (0, 0) for s in schedules]

@@ -27,6 +27,15 @@ batched call; their own optimizers stay unused.
 
 Batch norm stays in inference mode (the model's ``train`` keeps it so), so
 the stacked running statistics are only read.
+
+Which sequences a step commits is an ``active`` mask, known on the host
+(the per-event loop: an inactive sequence takes no loss and fuses nothing)
+or a ``[n_local]`` bool tensor on the device (the multi-sequence program,
+``parallel/adaptation.py``: every sequence computes, its loss selected by
+the mask and its fusion masked, with no host read). Either way the
+optimizer's step is committed as the JAX runner's ``where(act, new, old)``
+over every stepped tensor and its optimizer state. While the program runs
+on a card (``_schedule`` set) the learning rate is ``DeviceSchedule``'s.
 """
 
 from __future__ import annotations
@@ -34,13 +43,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call, vmap
 
 from e2eslam_tpu_torch.device import resolve_device, set_full_fp32
-from e2eslam_tpu_torch.engine.optim import make_optimizer
+from e2eslam_tpu_torch.engine.optim import DeviceSchedule, make_optimizer
 from e2eslam_tpu_torch.engine.refine import PairBatch, RefinementEngine, validate_config
 from e2eslam_tpu_torch.models.convert import load_depth_weights
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
@@ -99,6 +109,21 @@ class ParallelState:
     scheduler: object
 
 
+def local_rows(mesh: Mesh, n_seq: int, tree, device) -> tuple:
+    """This rank's rows of each ``[n_seq, ...]`` array or tensor of
+    ``tree`` (a tuple), float32 on ``device``: the rows of the sequences it
+    holds (the JAX ``shard_leading``: on the port's mesh each rank is a
+    process that keeps its own slice of the leading axis)."""
+    n = n_seq // mesh.size
+    first = mesh.rank * n
+
+    def rows(x):
+        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+        return x[first:first + n].to(device=device, dtype=torch.float32).contiguous()
+
+    return tuple(rows(x) for x in tree)
+
+
 def pair_of(pairs: PairBatch, i: int) -> PairBatch:
     """Sequence ``i``'s window of a stacked ``PairBatch``."""
     return PairBatch(colors=pairs.colors[i], gt_depths=pairs.gt_depths[i],
@@ -135,6 +160,8 @@ class ParallelRefinement:
         self.map_capacity = int(map_capacity)
         self.engines = [RefinementEngine(config, self.model, map_capacity=self.map_capacity,
                                          device=self.device) for _ in range(self.n_local)]
+        # The device learning-rate schedule while the program runs on a card.
+        self._schedule: Optional[DeviceSchedule] = None
         self.reseed()
 
     def reseed(self, seeds: Optional[Sequence[int]] = None) -> None:
@@ -215,34 +242,40 @@ class ParallelRefinement:
 
     def refine_step(self, state: ParallelState, pairs: PairBatch, maps: List[MapState], *,
                     map_indices=None, knn_init=None, thread_knn: bool = False, step: int = 0,
-                    active: Optional[Sequence[bool]] = None):
+                    active=None):
         """One PFT step of every active local sequence. ``pairs``: each
         field with a leading ``[n_local]`` axis; ``maps``, ``map_indices``
-        and ``knn_init``: one entry per local sequence. Inactive sequences
-        (``active`` False) run the network with the others but take no loss,
-        and their parameters and optimizer state are kept as they were.
-        Returns (metrics, KNN caches), one entry per local sequence (None
-        where inactive)."""
+        and ``knn_init``: one entry per local sequence. ``active``: None
+        (all), host flags (an inactive sequence runs the network with the
+        others but takes no loss) or a device bool tensor (every sequence
+        takes its loss, selected by the mask with ``where``, so that a
+        padded window's NaN cannot reach the sum). An inactive sequence's
+        parameters and optimizer state are kept as they were. Returns
+        (metrics, KNN caches), one entry per local sequence (None where a
+        host flag is off)."""
         n = self.n_local
-        active = [True] * n if active is None else list(active)
+        flags, mask = _flags(active, n, self.device)
         map_indices = map_indices or [None] * n
         knn_init = knn_init or [None] * n
-        state.optimizer.zero_grad(set_to_none=True)
+        # The program's replays keep the gradients' buffers: zeroed, not freed.
+        state.optimizer.zero_grad(set_to_none=self._schedule is None)
         out = self.forward(state, self._net_inputs(pairs))
         F = pairs.colors.shape[1]
+        on_device = torch.is_tensor(active)
         total, held = None, [None] * n
         for i, engine in enumerate(self.engines):
-            if not active[i]:
+            if not flags[i]:
                 continue
             pair = pair_of(pairs, i)
             disp, depth = engine.depths_from_net(out[i], F)
             loss, aux, depth, _ = engine.step_loss(pair, disp, depth, maps[i], map_indices[i],
                                                    knn_init[i], thread_knn, step)
-            total = loss if total is None else total + loss
+            term = torch.where(active[i], loss, torch.zeros_like(loss)) if on_device else loss
+            total = term if total is None else total + term
             held[i] = (pair, depth, loss, aux)
         if total is not None:
             total.backward()
-        self._commit(state, active)
+        self._commit(state, mask)
         metrics, caches = [None] * n, [None] * n
         for i, h in enumerate(held):
             if h is not None:
@@ -251,13 +284,13 @@ class ParallelRefinement:
                 metrics[i] = self.engines[i].step_metrics(pair, depth, loss, aux)
         return metrics, caches
 
-    def _commit(self, state: ParallelState, active: List[bool]) -> None:
-        """The optimizer and schedule step, committed to the active
-        sequences' rows only: an inactive sequence's parameters and
-        optimizer state are restored after the step (Adam moves a parameter
-        whose gradient is zero), as the JAX runner's ``where(act, new,
-        old)`` (parallel/adaptation.py:150-154). State the optimizer has not
-        made yet (its first step) is left as the step makes it.
+    def _commit(self, state: ParallelState, mask: Optional[Tensor]) -> None:
+        """The optimizer and schedule step, committed as ``where(mask, new,
+        old)`` over each stepped tensor and its same-shaped optimizer state
+        (Adam moves a parameter whose gradient is zero), the JAX runner's
+        select (parallel/adaptation.py:150-154); ``mask`` None commits every
+        row. State the optimizer has not made yet (its first step) is left
+        as the step makes it.
 
         The step counter and the learning-rate schedule are shared: they
         are right for every sequence because each starts at event 0 and,
@@ -268,34 +301,62 @@ class ParallelRefinement:
             for p in stepped:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-        idle = [i for i, a in enumerate(active) if not a]
-        saved = []
-        if idle:
-            rows = torch.tensor(idle, device=self.device)
-            for p in stepped:
-                kept = [p] + [t for t in opt.state.get(p, {}).values()
-                              if torch.is_tensor(t) and t.shape == p.shape]
-                saved += [(t, t.detach().index_select(0, rows).clone()) for t in kept]
-        opt.step()
-        state.scheduler.step()
-        with torch.no_grad():
-            for t, old in saved:
-                t.index_copy_(0, rows, old)
+        saved = save_rows(opt) if mask is not None else []
+        if self._schedule is None:
+            opt.step()
+            state.scheduler.step()
+        else:
+            self._schedule.set_lr()
+            opt.step()
+            self._schedule.stepped()
+        commit_rows(saved, mask)
 
     def fuse_pair(self, state: ParallelState, pairs: PairBatch, maps: List[MapState], *,
-                  fuse_prev: bool, active: Optional[Sequence[bool]] = None):
+                  fuse_prev: bool, active=None):
         """Fuse each active local sequence's pair into its map, the network
-        of every sequence in one call. Returns (maps, estimated poses), the
-        inactive sequences' maps as they were and their poses None."""
+        of every sequence in one call. ``active`` as ``refine_step``'s: a
+        host flag off skips the sequence (its map as it was, its pose None);
+        a device mask fuses every sequence, masked (``slam/fusion.py``: an
+        inactive map comes out unchanged). Returns (maps, estimated poses)."""
         n = self.n_local
-        active = [True] * n if active is None else list(active)
+        flags, _ = _flags(active, n, self.device)
         with torch.no_grad():
             out = self.forward(state, self._net_inputs(pairs))
         F = pairs.colors.shape[1]
         maps, est = list(maps), [None] * n
         for i, engine in enumerate(self.engines):
-            if active[i]:
+            if flags[i]:
                 _, depth = engine.depths_from_net(out[i], F)
-                maps[i], est[i] = engine.fuse_depth(pair_of(pairs, i), depth, maps[i],
-                                                    fuse_prev=fuse_prev)
+                maps[i], est[i] = engine.fuse_depth(
+                    pair_of(pairs, i), depth, maps[i], fuse_prev=fuse_prev,
+                    active=active[i] if torch.is_tensor(active) else None)
         return maps, est
+
+
+def save_rows(opt) -> list:
+    """(tensor, copy) of each parameter ``opt`` steps and of its
+    same-shaped optimizer state, before a masked step."""
+    saved = []
+    for p in (p for group in opt.param_groups for p in group["params"]):
+        kept = [p] + [t for t in opt.state.get(p, {}).values()
+                      if torch.is_tensor(t) and t.shape == p.shape]
+        saved += [(t, t.detach().clone()) for t in kept]
+    return saved
+
+
+@torch.no_grad()
+def commit_rows(saved: list, mask: Optional[Tensor]) -> None:
+    """``t = where(mask, t, copy)`` along each saved tensor's leading
+    ``[n_local]`` axis, in place."""
+    for t, old in saved:
+        torch.where(mask.reshape((-1,) + (1,) * (t.dim() - 1)), t, old, out=t)
+
+
+def _flags(active, n: int, device):
+    """(host flags, the commit mask) of ``active``: None (all on, no mask),
+    host flags (the mask only where one is off) or a device bool tensor
+    (all computed, the tensor the mask)."""
+    if torch.is_tensor(active):
+        return [True] * n, active
+    flags = [True] * n if active is None else [bool(a) for a in active]
+    return flags, None if all(flags) else torch.tensor(flags, device=device)

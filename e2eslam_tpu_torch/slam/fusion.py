@@ -181,12 +181,21 @@ def _write_rows(data: Tensor, tgt: Tensor, rows: Tensor, writes: Tensor) -> None
 def _window_view(state: MapState, window: int):
     """The newest ``window`` rows of the map as a map of their own
     (``e2eslam_tpu/slam/fusion.py:121-138``): association and fusion then
-    cost O(window) whatever the map's size. ``count`` is a host integer, so
-    the window is a plain slice. Returns (start, sub-map)."""
+    cost O(window) whatever the map's size. The start is ``clip(count -
+    window, 0, max(N - window, 0))``: for a host count a python int and the
+    window a slice of the buffer; for a device count a 0-d tensor and the
+    window a gather of the rows ``start + arange(window)`` (no host read;
+    fusion writes them back). Returns (start, the rows gathered or None,
+    sub-map)."""
     N = state.data.shape[0]
+    if isinstance(state.count, Tensor):
+        start = (state.count - window).clamp(min=0, max=max(N - window, 0))
+        rows = start + torch.arange(window, device=state.data.device)
+        return start, rows, MapState(data=state.data.index_select(0, rows),
+                                     count=(state.count - start).clamp(max=window))
     start = min(max(state.count - window, 0), max(N - window, 0))
-    return start, MapState(data=state.data[start:start + window],
-                           count=min(state.count - start, window))
+    return start, None, MapState(data=state.data[start:start + window],
+                                 count=min(state.count - start, window))
 
 
 @torch.no_grad()
@@ -199,7 +208,7 @@ def projective_nn(state: MapState, frame: RGBDFrame, *, active_window: Optional[
     Returns (nn_idx [HW] int64 clipped to the candidates, found [HW] bool)."""
     start = 0
     if active_window is not None and active_window < state.data.shape[0]:
-        start, state = _window_view(state, int(active_window))
+        start, _, state = _window_view(state, int(active_window))
     _, best_idx, _, _, _ = _associate(state, frame, frame_pointcloud(frame),
                                       dist_th=float("inf"), angle_th=None)
     N = state.data.shape[0]
@@ -215,33 +224,42 @@ def _tracks_grad(state: MapState, frame: RGBDFrame) -> bool:
 
 def pointfusion_step(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05,
                      angle_th: Optional[float] = 20.0, sigma: float = 0.6,
-                     active_window: Optional[int] = None) -> MapState:
+                     active_window: Optional[int] = None,
+                     active: Optional[Tensor] = None) -> MapState:
     """Fuse one live frame into the map: in place (the same buffer, with the
     new count), or out of place when it carries autograd (``_tracks_grad``).
     Returns the new state.
 
     ``active_window`` W (``e2eslam_tpu/slam/fusion.py:415-440``): only the
     newest W rows are association and fusion candidates; their fused rows
-    are written back first, then the appends land in the full buffer."""
+    are written back first, then the appends land in the full buffer.
+
+    ``active`` (a 0-d bool tensor, or None: True): where False, the map
+    comes out as it went in, bytes and count alike, with no host read (the
+    multi-sequence program's masked commit, ``e2eslam_tpu/parallel/
+    adaptation.py:150-154``)."""
     if _tracks_grad(state, frame):
-        return _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window,
+        return _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, active,
                                  inplace=False)
     with torch.no_grad():
-        return _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window,
+        return _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, active,
                                  inplace=True)
 
 
-def _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, *, inplace):
+def _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, active, *,
+                      inplace):
     H, W = frame.depth.shape[:2]
     HW = H * W
     N = state.data.shape[0]
     windowed = active_window is not None and active_window < N
-    start, sub = _window_view(state, int(active_window)) if windowed else (0, state)
+    start, rows, sub = _window_view(state, int(active_window)) if windowed else (0, None, state)
     live = frame_pointcloud(frame)
     alpha = _pixel_alpha(H, W, frame.intrinsics, sigma) * live.mask
 
     pix, _, winner, v_live, n_live = _associate(
         sub, frame, live, dist_th=dist_th, angle_th=angle_th)
+    if active is not None:
+        winner = winner & active
     if n_live is None:  # no angle test: the normals are gathered here
         n_live = live.normals[pix]
 
@@ -265,9 +283,17 @@ def _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, *, 
         normals_raw)
     confidence_w = c + winner.to(c.dtype) * a
     sub_rows = pack_rows(points_w, normals_w, colors_w, confidence_w)
+    if active is not None:
+        # The renormalised normals move every row a little: keep the old.
+        sub_rows = torch.where(active, sub_rows, sub.data)
     if inplace:
-        sub.data.copy_(sub_rows)
+        if rows is None:
+            sub.data.copy_(sub_rows)
+        else:
+            state.data.index_copy_(0, rows, sub_rows)
         data = state.data
+    elif rows is not None:
+        data = state.data.index_copy(0, rows, sub_rows)
     elif windowed:
         data = torch.cat([state.data[:start], sub_rows,
                           state.data[start + sub_rows.shape[0]:]])
@@ -278,6 +304,8 @@ def _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, *, 
     claimed = torch.zeros(HW, dtype=torch.int64, device=pix.device).scatter_reduce(
         0, pix, winner.to(torch.int64), "amax", include_self=True)
     new_mask = (live.mask > 0) & (claimed == 0)
+    if active is not None:
+        new_mask = new_mask & active
     order = torch.cumsum(new_mask.to(torch.int64), 0) - 1
     dest = state.count + order
     ok = new_mask & (dest < N)
@@ -354,7 +382,8 @@ def _index_candidates(state: MapState, frame: RGBDFrame, live: FramePoints,
 
 def pointfusion_step_index(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05,
                            angle_th: Optional[float] = 20.0, sigma: float = 0.6,
-                           level2_period: int = 1, search_radius: int = 0) -> MapState:
+                           level2_period: int = 1, search_radius: int = 0,
+                           active: Optional[Tensor] = None) -> MapState:
     """Index-image PointFusion (``e2eslam_tpu/slam/fusion.py:234-412``), in
     place on the map buffer, or out of place when it carries autograd
     (``_tracks_grad``: then each slot is written once, by its winner, so
@@ -373,17 +402,21 @@ def pointfusion_step_index(state: MapState, frame: RGBDFrame, *, dist_th: float 
     explicitly (a scatter-max of pixel ids per slot) and every write to a
     slot carries its winner's row: duplicates write equal bytes, and the
     result is the same on both devices and in every run.
+
+    ``active`` (a 0-d bool tensor, or None): where False, nothing is written
+    and the count, index images and keyframe counter stay as they were
+    (``pointfusion_step``'s).
     """
     if _tracks_grad(state, frame):
         return _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_period,
-                                       search_radius, inplace=False)
+                                       search_radius, active, inplace=False)
     with torch.no_grad():
         return _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_period,
-                                       search_radius, inplace=True)
+                                       search_radius, active, inplace=True)
 
 
 def _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_period,
-                            search_radius, *, inplace):
+                            search_radius, active, *, inplace):
     H, W = frame.depth.shape[:2]
     HW = H * W
     N = state.data.shape[0]
@@ -404,6 +437,9 @@ def _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_perio
     similar = has_cand & (dist < dist_th)
     if angle_th is not None:
         similar = similar & ((live.normals * m_n).sum(dim=-1) > _cos_deg(angle_th))
+    if active is not None:
+        similar = similar & active
+        valid = valid & active
 
     # ---- 2. confidence-weighted blend, computed pixel-side ---------------
     wsum = (c_cand + alpha).clamp(min=1e-12)
@@ -459,7 +495,13 @@ def _pointfusion_step_index(state, frame, dist_th, angle_th, sigma, level2_perio
         elif kctr % level2_period == 0:
             # A slow level: every K-th keyframe's image, held K keyframes.
             idx2, pose2 = new_index, pose
-        kctr = None if kctr is None else kctr + 1
+        kctr = None if kctr is None else kctr + (1 if active is None else active.long())
+    if active is not None:
+        new_index = torch.where(active, new_index, state.index_image)
+        pose = torch.where(active, pose, state.index_pose)
+        if idx2 is not None:
+            idx2 = torch.where(active, idx2, state.index_image2)
+            pose2 = torch.where(active, pose2, state.index_pose2)
     return dataclasses.replace(state, data=data, count=count, index_image=new_index,
                                index_pose=pose,
                                index_image2=idx2, index_pose2=pose2, kf_counter=kctr)

@@ -109,3 +109,10 @@ def map_from_arrays(fields, device=None) -> MapState:
                     index_image=tensor("index_image"), index_pose=tensor("index_pose"),
                     index_image2=tensor("index_image2"), index_pose2=tensor("index_pose2"),
                     kf_counter=None if counter is None else int(counter))
+
+
+def map_points(state: MapState):
+    """(points [N, 3], valid mask [N]) of the buffer: the first ``count``
+    rows are valid (a device count stays on the device)."""
+    rows = torch.arange(state.data.shape[0], device=state.data.device)
+    return state.points, rows < state.count

@@ -39,13 +39,16 @@ ODOMETRY = ("gt", "icp", "gradicp")
 
 
 @torch.no_grad()
-def _append_frame(state: MapState, frame: RGBDFrame) -> MapState:
+def _append_frame(state: MapState, frame: RGBDFrame,
+                  active: Optional[Tensor] = None) -> MapState:
     """ICPSLAM's map update: append every valid pixel at the count cursor,
     in place (``e2eslam_tpu/slam/slam.py:34-51``); the count an int or a
-    device tensor, as fusion's."""
+    device tensor, as fusion's, and ``active`` as fusion's."""
     live = frame_pointcloud(frame)
     N = state.data.shape[0]
     new_mask = live.mask > 0
+    if active is not None:
+        new_mask = new_mask & active
     dest = state.count + torch.cumsum(new_mask.to(torch.int64), 0) - 1
     ok = new_mask & (dest < N)
     rows = pack_rows(live.points, live.normals, live.colors, live.mask)
@@ -78,14 +81,18 @@ class PointFusion:
         if self.odom not in ODOMETRY:
             raise ValueError(f"MODEL.odom {self.odom!r}: one of {ODOMETRY}")
 
-    def _update_map(self, state: MapState, frame: RGBDFrame) -> MapState:
+    def _update_map(self, state: MapState, frame: RGBDFrame,
+                    active: Optional[Tensor] = None) -> MapState:
+        """Fuse ``frame``; where ``active`` (a 0-d bool tensor) is False the
+        map is left as it was (``slam/fusion.py``)."""
         if self.fusion_impl == "index":
             return pointfusion_step_index(
                 state, frame, dist_th=self.dist_th, angle_th=self.angle_th,
                 sigma=self.sigma, level2_period=self.index_level2_period,
-                search_radius=self.index_search_radius)
+                search_radius=self.index_search_radius, active=active)
         return pointfusion_step(state, frame, dist_th=self.dist_th, angle_th=self.angle_th,
-                                sigma=self.sigma, active_window=self.active_window)
+                                sigma=self.sigma, active_window=self.active_window,
+                                active=active)
 
     def _localize(self, live: RGBDFrame, prev: Optional[RGBDFrame]) -> Tensor:
         """The live frame's world pose (``slam.py:99-110``)."""
@@ -95,17 +102,17 @@ class PointFusion:
                        downsample=self.icp_downsample, soft=self.odom == "gradicp")
 
     def step(self, state: MapState, live_frame: RGBDFrame,
-             prev_frame: Optional[RGBDFrame] = None):
+             prev_frame: Optional[RGBDFrame] = None, active: Optional[Tensor] = None):
         """Localise the live frame (unless ``prev_frame`` is None) and fuse
-        it. Returns (map, pose, frame), ``frame`` the one fused: with
-        estimated odometry, rebuilt at the estimated pose
-        (``slam.py:112-136``), so its world vertices, and on the index path
-        the cached ``index_pose``, agree with that pose."""
+        it (where ``active``, as ``_update_map``). Returns (map, pose,
+        frame), ``frame`` the one fused: with estimated odometry, rebuilt at
+        the estimated pose (``slam.py:112-136``), so its world vertices, and
+        on the index path the cached ``index_pose``, agree with that pose."""
         pose = self._localize(live_frame, prev_frame)
         if self.odom != "gt" and prev_frame is not None:
             live_frame = build_frame(live_frame.color, live_frame.depth,
                                      live_frame.intrinsics, pose)
-        return self._update_map(state, live_frame), pose, live_frame
+        return self._update_map(state, live_frame, active), pose, live_frame
 
     def __call__(self, colors: Tensor, depths: Tensor, intrinsics: Tensor, poses: Tensor, *,
                  capacity: Optional[int] = None,
@@ -137,5 +144,6 @@ class ICPSLAM(PointFusion):
     update takes ``PointFusion._update_map``'s arguments; the JAX class's
     override does not, and its ``step`` raises (``slam.py:133``, ``:193``)."""
 
-    def _update_map(self, state: MapState, frame: RGBDFrame) -> MapState:
-        return _append_frame(state, frame)
+    def _update_map(self, state: MapState, frame: RGBDFrame,
+                    active: Optional[Tensor] = None) -> MapState:
+        return _append_frame(state, frame, active)

@@ -820,3 +820,90 @@ def test_replays_make_no_host_synchronisation(card, over):
     assert all(np.isfinite(m["abs_rel"]) for m in result["metrics"])
     if over:
         assert [c["keyframe"] for c in result["compactions"]] == [1, 3]
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["torch_capturable_adam", "torch_default_adam", "port_sgd"])
+def test_optimizers_under_device_schedule_match_optax(card, form):
+    """torch's Adam in its ``capturable`` form under ``DeviceSchedule`` (the
+    programs' per-tensor Adam and tensor learning rate) and in its default
+    form (the loop's), and the port's SGD under ``DeviceSchedule``, on the
+    card: 30 updates across a StepLR decay against the float64
+    transcription of optax's formula (``chip_smoke.optax_reference``,
+    itself held against optax by tests/test_torch_optim.py) at
+    tests/test_torch_optim.py's 1e-6. The port's SGD also equals its
+    host-scheduled run to the bit."""
+    from chip_smoke import OPTAX_TOL, _optimizer_run, optax_inputs, optax_reference
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.optim import SGD
+
+    cfg = load_yaml(default_config_path())
+    cfg.OPTIMIZATION.update({"learning_rate": 1e-2, "schedular": "StepLR",
+                             "schedular_step_size": 10, "schedular_gamma": 0.5})
+    init, grads = optax_inputs()
+    make = {"torch_capturable_adam": lambda ps: torch.optim.Adam(ps, lr=1e-2, capturable=True),
+            "torch_default_adam": lambda ps: torch.optim.Adam(ps, lr=1e-2),
+            "port_sgd": lambda ps: SGD(ps, lr=1e-2, foreach=True)}[form]
+    want = optax_reference("sgd" if form == "port_sgd" else "adam", init, grads,
+                           [1e-2 * 0.5 ** (t // 10) for t in range(len(grads))])
+    got = _optimizer_run(make, init, grads, cfg, device_schedule=form != "torch_default_adam")
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=OPTAX_TOL,
+                                   atol=OPTAX_TOL * np.abs(want[k]).max(), err_msg=k)
+    if form == "port_sgd":
+        host = _optimizer_run(make, init, grads, cfg, device_schedule=False)
+        for k in want:
+            assert np.array_equal(host[k], got[k]), k
+
+def _batched_program(graph: bool):
+    """Two ragged 64x64 sequences through ``ParallelAdaptation.run(dispatch=
+    "whole")`` with deterministic algorithms; without ``graph`` the warm
+    events run eagerly where they would replay. The replays run under
+    ``set_sync_debug_mode("error")``."""
+    from e2eslam_tpu_torch.apps.profile_adaptation import make_sequences
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.models.depth_net import make_depth_model
+    from e2eslam_tpu_torch.parallel.adaptation import ParallelAdaptation
+
+    cfg = load_yaml(default_config_path())
+    cfg.DATA.height = cfg.DATA.width = 64
+    cfg.DEMO.frame_threshold = 0.01
+    cfg.OPTIMIZATION.refinement_steps = 2
+    seqs = make_sequences(2, 7, 64, 64)
+    c, d, K_, p = seqs
+    c[1, 4:], d[1, 4:], p[1, 4:] = c[1, 3], d[1, 3], p[1, 3]  # ragged
+    par = ParallelAdaptation(cfg, make_depth_model(cfg), map_capacity=7 * 64 * 64, n_seq=2)
+    par.par.engines[0].replay_sync_mode = "error"
+    if not graph:
+        def eager(state, seq, ins, maps, carry, out, est, info):
+            return _EagerGraph(lambda: par._event(state, seq, ins, maps, carry, out, est,
+                                                  fuse_prev=False))
+
+        par._capture_event = eager
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return par.run(par.init_state(), (c, d, K_, p), threshold=0.01, dispatch="whole")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_batched_program_replays_equal_its_eager_events(card):
+    """The program over two ragged sequences: one graph captured, its
+    replays free of host synchronisation, and every sequence's metrics,
+    poses and map what the same events run eagerly give."""
+    a, b = _batched_program(True), _batched_program(False)
+    assert a["dispatch"] == "whole" and a["graphs"] == 1 and b["graphs"] == 0
+    kf = [r["num_keyframes"] for r in a["per_sequence"]]
+    assert kf[1] < kf[0] and a["num_events"] >= 4
+    for x, y in zip(a["per_sequence"], b["per_sequence"]):
+        assert x["keyframes"] == y["keyframes"]
+        for mx, my in zip(x["metrics"], y["metrics"]):
+            for key in mx:
+                np.testing.assert_allclose(mx[key], my[key], rtol=1e-5, atol=1e-7,
+                                           err_msg=key)
+        np.testing.assert_allclose(x["est_poses"], y["est_poses"], atol=1e-6)
+        assert x["map_points"] == y["map_points"]

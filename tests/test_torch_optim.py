@@ -8,6 +8,14 @@ schedules' boundaries, through ``e2eslam_tpu.engine.optim.make_optimizer``
 and the port's ``make_optimizer``. Parameters agree to 1e-6 relative (the
 formulas are the same; the two packages round a few operations in other
 orders). The learning rate, 1e-2, moves the parameters far past that.
+SGD, RMSprop and Adagrad are the port's own (``engine/optim.py``), Adam
+torch's.
+
+Also: ``chip_smoke.optax_reference``, the float64 numpy transcription of
+optax's Adam and SGD that the card's checks hold the optimizers against
+(``chip_smoke.py``'s ``optimizers`` phase, tests/test_torch_cuda.py, where
+no JAX is installed), against optax itself run in float64, at 1e-7; so
+the card's check closes on optax.
 """
 
 import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
@@ -90,3 +98,30 @@ def test_unknown_optimizer_and_schedule_raise():
     cfg.OPTIMIZATION.schedular = "CosineLR"
     with pytest.raises(ValueError, match="schedular"):
         make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))])
+
+
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_numpy_transcription_matches_optax(kind):
+    import jax
+
+    from chip_smoke import OPTAX_STEPS, optax_inputs, optax_reference
+
+    init, grads = optax_inputs()
+    lrs = [1e-2 * 0.5 ** (t // 10) for t in range(OPTAX_STEPS)]
+    want = optax_reference(kind, init, grads, lrs)
+    with jax.enable_x64(True):
+        schedule = optax.exponential_decay(1e-2, 10, 0.5, staircase=True)
+        tx = (optax.adam(schedule) if kind == "adam" else
+              optax.chain(optax.add_decayed_weights(1e-3), optax.sgd(schedule, momentum=0.9)))
+        params = {k: jnp.asarray(v, jnp.float64) for k, v in init.items()}
+        state = tx.init(params)
+        for g in grads:
+            updates, state = tx.update({k: jnp.asarray(v, jnp.float64) for k, v in g.items()},
+                                       state, params)
+            params = optax.apply_updates(params, updates)
+        got = {k: np.asarray(v) for k, v in params.items()}
+    for k in want:
+        assert got[k].dtype == np.float64
+        assert np.abs(got[k] - init[k]).max() > 1e-3
+        np.testing.assert_allclose(want[k], got[k], rtol=1e-7, atol=1e-7 * np.abs(got[k]).max(),
+                                   err_msg=k)

@@ -12,7 +12,11 @@ Adam's normalised steps; later keyframes drift further, as the JAX test
 notes), map points within 2%. The config draws no random numbers
 (auto-masking, min-reprojection and sparse supervision off).
 
-Also: the three ``dispatch`` modes give equal results; ``n_seq`` must be a
+Also: the program (``dispatch="whole"``, eager on the CPU) and the
+per-event loop give equal results where no seed threads between keyframes,
+and ``auto`` picks between them as the JAX runner does; a finished
+sequence's parameters, optimizer state and map stay as its last active
+event left them (either dispatch); ``n_seq`` must be a
 multiple of the mesh size, and a mesh larger than the process group
 raises; a ``data`` axis of two gloo processes (one sequence each, run
 unbatched) equals the one-process run to the same tolerances; one
@@ -112,11 +116,19 @@ def test_batched_sequences_match_their_solo_runs():
 
 
 def test_dispatch_modes_are_one_loop():
+    """The three ``dispatch`` values on the CPU: ``whole`` (the program, its
+    events eager here) and ``event`` (the per-event loop) give equal
+    results where nothing threads a seed between keyframes (R = 1); ``auto``
+    takes the program below 8 sequences. A config the program does not run
+    (3-frame windows) makes ``whole`` raise and ``auto`` take the loop; an
+    unknown value raises."""
     cfg = _cfg()
     cfg.OPTIMIZATION.refinement_steps = 1
     _, seqs = _ragged()
     two = tuple(x[2:] for x in seqs)
     runs = [_batched(cfg, two, dispatch=d) for d in ("whole", "event", "auto")]
+    assert [r["dispatch"] for r in runs] == ["whole", "event", "whole"]
+    assert runs[0]["graphs"] == 0  # eager on the CPU
     for r in runs[1:]:
         for a, b in zip(r["per_sequence"], runs[0]["per_sequence"]):
             assert a["keyframes"] == b["keyframes"]
@@ -125,6 +137,58 @@ def test_dispatch_modes_are_one_loop():
             np.testing.assert_array_equal(a["est_poses"], b["est_poses"])
     with pytest.raises(ValueError, match="dispatch"):
         _batched(cfg, two, dispatch="program")
+    cfg.DEMO.sequence_length_refinement = 3
+    with pytest.raises(ValueError, match="F != 2 windows"):
+        _batched(cfg, two, dispatch="whole")
+    assert _batched(cfg, two)["dispatch"] == "event"
+
+
+@pytest.mark.parametrize("dispatch", ["whole", "event"])
+def test_finished_sequence_keeps_its_last_active_state(dispatch):
+    """The masked commit: the sequence that runs out of keyframes first
+    ends the run with its parameters, optimizer state and map equal to the
+    bit to those after its last active event, though the others go on
+    stepping (and, in the program, it goes on computing)."""
+    cfg = _cfg()
+    _, seqs = _ragged()
+    two = tuple(x[2:] for x in seqs)
+    par = ParallelAdaptation(cfg, make_depth_model(cfg), map_capacity=L * H * W, n_seq=2,
+                             device="cpu")
+    state = par.init_state()
+    snap, events = {}, [0]
+    fuse = par.par.fuse_pair
+
+    def watched(*args, **kw):
+        maps, est = fuse(*args, **kw)
+        if events[0] == snap.get("last"):
+            opt = state.optimizer
+            snap["params"] = {k: v[1].clone() for k, v in state.params.items()}
+            snap["opt"] = {(k, key): t[1].clone() for k, v in state.params.items()
+                           for key, t in opt.state.get(v, {}).items()
+                           if torch.is_tensor(t) and t.shape == v.shape}
+            n = int(maps[1].count)
+            snap["map"] = (n, maps[1].data[:n].clone())
+        events[0] += 1
+        return maps, est
+
+    from e2eslam_tpu_torch.engine.adaptation import keyframe_schedule
+
+    counts = [len(keyframe_schedule(p, 0.01)) for p in two[3]]
+    assert counts[1] < counts[0], counts
+    snap["last"] = counts[1] - 1
+    par.par.fuse_pair = watched
+    out = par.run(state, two, threshold=0.01, dispatch=dispatch)
+    assert out["dispatch"] == dispatch and events[0] == counts[0]
+    moved = 0
+    for k, v in state.params.items():
+        assert torch.equal(v[1], snap["params"][k]), k
+        moved += int(not torch.equal(v[0], v[1]))
+    assert moved > 0 and snap["opt"]
+    for (k, key), t in snap["opt"].items():
+        assert torch.equal(state.optimizer.state[state.params[k]][key][1], t), (k, key)
+    n, rows = snap["map"]
+    assert out["per_sequence"][1]["map_points"] == n
+    assert torch.equal(out["maps"][1].data[:n], rows)
 
 
 def test_mesh_size_guards():

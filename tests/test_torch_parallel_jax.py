@@ -14,7 +14,10 @@ streams, which cannot match, do not enter.
 
   * the brute path (exact KNN, texture gate; the JAX test's ragged data:
     one sequence and a frozen-tail copy of another), the JAX runner's
-    per-event dispatch;
+    per-event dispatch (which tests/test_parallel.py:439 pins equal to its
+    whole-run program) against the port's program (``dispatch="whole"``,
+    every event eager on the CPU, the code the card captures) and against
+    the port's per-event loop;
   * the index path with voxel compaction: tests/test_torch_parallel_compact.py.
 """
 
@@ -79,7 +82,7 @@ def _compact_data(L):
                  .astype(np.float32) for k in range(4))
 
 
-def _both(over, data, dispatch):
+def _both(over, data, dispatch, port_dispatch="auto"):
     jcfg = _cfg(jax_load_yaml, jax_default_path(), over)
     L = int(jcfg.DEMO.sequence_length)
     cap = int(jcfg.MODEL.map_capacity)
@@ -93,7 +96,7 @@ def _both(over, data, dispatch):
     tcfg = _cfg(load_yaml, default_config_path(), over)
     par = ParallelAdaptation(tcfg, make_depth_model(tcfg), map_capacity=cap, n_seq=2,
                              device="cpu")
-    got = par.run(par.init_state(weights), data, threshold=0.01)
+    got = par.run(par.init_state(weights), data, threshold=0.01, dispatch=port_dispatch)
     assert L == int(tcfg.DEMO.sequence_length)
     return got, want
 
@@ -113,10 +116,17 @@ def _check(got, want):
 
 
 def test_brute_path_matches_jax_event_dispatch():
-    got, want = _both(BRUTE, _brute_data(5), "event")
+    got, want = _both(BRUTE, _brute_data(5), "event", "whole")
+    assert got["dispatch"] == "whole"
     _check(got, want)
     kf = [r["num_keyframes"] for r in got["per_sequence"]]
     assert kf[1] < kf[0], kf  # ragged
+
+
+def test_brute_path_event_loop_matches_jax_event_dispatch():
+    got, want = _both(BRUTE, _brute_data(5), "event", "event")
+    assert got["dispatch"] == "event"
+    _check(got, want)
 
 
 @pytest.mark.parametrize("n_seq", [2])

@@ -7,10 +7,11 @@ Runs: 64x64, 6 frames (5 keyframe events), R = 2, the JAX runner's
 weights carried over (``models/convert.py``), both runners through their
 programs (``OnlineAdaptation.run`` with ``verbose=False``): the default
 brute three3d, the flagship settings (index fusion and association) in
-float32, the brute path with compaction every 2nd event, and gradICP
-odometry. Tolerances, as for the runs of ``tests/test_torch_pft_runs.py``:
-equal keyframes; each of the first two events' last-step metrics within
-1e-3 relative; the map count within max(4, count // 1000), the JAX
+float32, the brute path with compaction every 2nd event, gradICP
+odometry, ``MODEL.active_window`` and the SGD optimizer. Tolerances, as
+for the runs of ``tests/test_torch_pft_runs.py``: equal keyframes; each
+of the first two events' last-step metrics within 1e-3 relative; the map
+count within max(4, count // 1000), the JAX
 package's own tie allowance (tests/test_engine.py:506-508); equal
 compaction events; estimated poses within 1e-4.
 
@@ -66,7 +67,15 @@ FLAGSHIP_F32 = {  # bench.py::flagship_cfg's settings, the CNN in float32
     "MODEL.index_search_radius": 0, "MODEL.index_levels": 2, "LOSS.index_assoc_levels": 1,
     "OPTIMIZATION.fused_update": True, "ABLATION.median_stride": 4}
 RUNS = {"brute": {}, "index": FLAGSHIP_F32, "compact": {"MODEL.compact_period": 2},
-        "gradicp": {"MODEL.odom": "gradicp"}}
+        "gradicp": {"MODEL.odom": "gradicp"},
+        # The active window: fusion associates with the newest 6,000 rows
+        # (about 1.5 frames at 64x64), its start following the device count.
+        "window": {"MODEL.active_window": 6000},
+        # The port's SGD (momentum 0.9, weight decay 1e-3 on every parameter),
+        # at ten times BASE's rate: its events agree with JAX's to 1e-6. At
+        # 1e-3 the first three agree to 4e-7 and a near-tie carried by the
+        # larger steps moves the fifth by 0.15% and the map by 19 points.
+        "sgd": {"OPTIMIZATION.optimizer": "SGD", "OPTIMIZATION.learning_rate": 1e-4}}
 
 
 def _cfg(load, path, over):
@@ -163,11 +172,11 @@ class _Taken(Exception):
 
 def test_dispatch_rule_matches_jax(monkeypatch):
     """``sequence_program_blocker`` sends a run where the JAX runner sends
-    it: the program by default; the per-keyframe loop when verbose, with
-    3-frame windows, the voxel association, no refinement step or
-    ``use_sequence_program`` off. The JAX runner is stopped at its first
-    dispatch (its engine's ``process_sequence``, or the loop's first
-    window)."""
+    it: the program by default, with the active window and with SGD; the
+    per-keyframe loop when verbose, with 3-frame windows, the voxel
+    association, no refinement step or ``use_sequence_program`` off. The
+    JAX runner is stopped at its first dispatch (its engine's
+    ``process_sequence``, or the loop's first window)."""
 
     def program(*a, **kw):
         raise _Taken("program")
@@ -179,7 +188,9 @@ def test_dispatch_rule_matches_jax(monkeypatch):
              "F3": ({"DEMO.sequence_length_refinement": 3}, False, True),
              "voxel": ({"LOSS.knn_impl": "voxel"}, False, True),
              "R0": ({"OPTIMIZATION.refinement_steps": 0}, False, True),
-             "off": ({}, False, False)}
+             "off": ({}, False, False),
+             "window": ({"MODEL.active_window": 4096}, False, True),
+             "SGD": ({"OPTIMIZATION.optimizer": "SGD"}, False, True)}
     monkeypatch.setattr(jax_adaptation, "PairBatch", loop)
     for name, (over, verbose, use) in cases.items():
         jr = jax_adaptation.OnlineAdaptation(_cfg(jax_load_yaml, jax_default_path(), over))
@@ -190,12 +201,13 @@ def test_dispatch_rule_matches_jax(monkeypatch):
         why = sequence_program_blocker(_cfg(load_yaml, default_config_path(), over),
                                        verbose=verbose, use_sequence_program=use)
         assert (why is None) == (str(taken.value) == "program"), (name, why)
-    # The port's own rule: settings its program does not replay take the loop.
-    for over in ({"MODEL.active_window": 4096}, {"OPTIMIZATION.optimizer": "SGD"},
-                 {"VIZ.log_gradients": True}, {"DEBUG.plot": True}):
+    # The port's own rule: the observability outputs take the loop; the
+    # active window and every optimizer take the program.
+    for over in ({"VIZ.log_gradients": True}, {"VIZ.tensorboard": True}, {"DEBUG.plot": True}):
         cfg = _cfg(load_yaml, default_config_path(), over)
         assert sequence_program_blocker(cfg, verbose=False) is not None, over
     for over in ({"OPTIMIZATION.optimizer": "RMSprop"}, {"OPTIMIZATION.optimizer": "Adagrad"},
+                 {"OPTIMIZATION.optimizer": "SGD"}, {"MODEL.active_window": 4096},
                  {"LOSS.chamfer_distance": True}, {"MODEL.compact_period": 4}):
         cfg = _cfg(load_yaml, default_config_path(), over)
         assert sequence_program_blocker(cfg, verbose=False) is None, over
@@ -267,6 +279,77 @@ def test_fusion_keeps_a_tensor_count(impl):
         assert isinstance(b.kf_counter, torch.Tensor) and int(b.kf_counter) == a.kf_counter
         for name in ("index_image", "index_image2", "index_pose", "index_pose2"):
             assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("window", [500, 700, 4000])
+def test_window_view_takes_a_tensor_count(window):
+    """The active window (``slam/fusion.py::_window_view``) from a device
+    count: the start ``clip(count - W, 0, N - W)`` and the rows gathered
+    equal the host count's slice; three scatter fusions and
+    ``projective_nn`` within the window give equal buffers, counts and
+    neighbours from an int and a tensor count."""
+    from e2eslam_tpu_torch.slam.fusion import _window_view, pointfusion_step, projective_nn
+    from e2eslam_tpu_torch.slam.pointclouds import MapState, empty_map, on_device
+
+    rng = np.random.default_rng(13)
+    data = torch.from_numpy(rng.normal(size=(900, 16)).astype(np.float32))
+    for count in (0, 300, 850, 900):
+        s0, rows0, a = _window_view(MapState(data=data, count=count), min(window, 900))
+        s1, rows1, b = _window_view(MapState(data=data, count=_t(count)), min(window, 900))
+        assert rows0 is None and isinstance(s1, torch.Tensor) and int(s1) == s0
+        assert torch.equal(rows1, torch.arange(s0, s0 + a.data.shape[0]))
+        assert torch.equal(a.data, b.data) and int(b.count) == a.count
+    frames = [_frame(rng, pose=None) for _ in range(3)]
+    states = []
+    for dev_count in (False, True):
+        m = empty_map(3 * 16 * 20 - 50)
+        m = on_device(m) if dev_count else m
+        for f in frames:
+            m = pointfusion_step(m, f, active_window=window)
+        nn = projective_nn(m, frames[-1], active_window=window)
+        states.append((m, nn))
+    (a, nn_a), (b, nn_b) = states
+    assert isinstance(b.count, torch.Tensor) and int(b.count) == a.count > 16 * 20
+    assert torch.equal(a.data, b.data)
+    assert torch.equal(nn_a[0], nn_b[0]) and torch.equal(nn_a[1], nn_b[1])
+
+
+@pytest.mark.parametrize("impl", ["scatter", "index"])
+def test_inactive_fusion_leaves_the_map(impl):
+    """Fusion with ``active`` False (the multi-sequence program's masked
+    commit) leaves the buffer, the count, the index images and the
+    keyframe counter as they were; with ``active`` True it equals the
+    unmasked fusion."""
+    from e2eslam_tpu_torch.slam.fusion import pointfusion_step, pointfusion_step_index
+    from e2eslam_tpu_torch.slam.pointclouds import empty_map, on_device
+
+    rng = np.random.default_rng(17)
+    frames = [_frame(rng) for _ in range(3)]
+
+    def fuse(m, f, active=None):
+        if impl == "index":
+            return pointfusion_step_index(m, f, level2_period=2, active=active)
+        return pointfusion_step(m, f, active_window=400, active=active)
+
+    def fresh():
+        m = on_device(empty_map(3 * 16 * 20, index_hw=16 * 20 if impl == "index" else None,
+                                index_levels=2))
+        for f in frames[:2]:
+            m = fuse(m, f)
+        return m
+
+    names = ("count", "index_image", "index_pose", "index_image2", "index_pose2",
+             "kf_counter")
+    m = fresh()
+    before = (m.data.clone(), {n: getattr(m, n) for n in names})
+    out = fuse(m, frames[2], torch.tensor(False))
+    assert torch.equal(out.data, before[0])
+    for n in names:
+        if before[1][n] is not None:
+            assert torch.equal(getattr(out, n), before[1][n]), n
+    a, b = fuse(fresh(), frames[2]), fuse(fresh(), frames[2], torch.tensor(True))
+    assert int(a.count) == int(b.count) > int(before[1]["count"])
+    assert torch.equal(a.data, b.data)
 
 
 def test_append_and_compaction_keep_a_tensor_count():
