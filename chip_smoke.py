@@ -162,8 +162,13 @@ Phases (any failure ends the script with a non-zero exit):
               update differently: the shipped brute runs' gaps are
               printed); first the data path alone, the default config at learning
               rate 0, equal to the loop in every abs_rel and map point; the
-              replays run under set_sync_debug_mode("error"); host syncs an
-              event for default_12; launches counted as eager plus captured
+              replays and the compaction passes between them run under
+              set_sync_debug_mode("error"); host syncs an event for
+              default_12 and compact_60, and none from event 2 to the end
+              of compact_60's program; each pass's device time (CUDA
+              events, ``pass_ms``); compact_voxel_12_seedless (voxel
+              passes on the brute path) equal to its loop to the bit;
+              launches counted as eager plus captured
               times replays (the wrappers' counts see a captured launch
               once); the captured candidate call (default_12), the captured
               map->frame resident call (chamfer_12) and a dense call on the
@@ -774,17 +779,20 @@ def phase_chamfer(knn, stats):
     out = compare_call(knn, "resident", args, "chamfer b->a", stats, timing=True,
                        plain=resident_plain_by_tiles(knn), stats_key="resident_ba")
     stats["resident_ba"]["launches"] = ba["resident"]
-    route_options(knn, args, out[:2])
+    route_options(knn, args, out[:2], stats["resident_ba"]["bound_ms"])
     return launches, summary
 
 
-def route_options(knn, args, resident_out):
+def route_options(knn, args, resident_out, bound_ms):
     """The candidate kernel on a resident call's inputs, with the table the
     dispatcher would build for it (ref tiles of RT_CAND rows whose box gap
     is below each query tile's seeded worst-best distance, best first): it
     must give the resident kernel's scores bit for bit. Both wrappers timed
     with CUDA events (median of 5 over 3 back-to-back calls); the table's
-    build is timed apart. Run after the path's launch counts are read."""
+    build is timed apart. The work is the resident call's, so its bound is
+    too (``bound_ms``, from the call's pairs needed): the candidate
+    route's share is ``bound_ms / cand_ms``. Run after the path's launch
+    counts are read."""
     import torch
 
     q4, r4, rbb, s0, i0, nq, nr, st = args
@@ -807,7 +815,9 @@ def route_options(knn, args, resident_out):
             "resident_ms": timed(lambda: [knn.resident_kernel(*args) for _ in range(3)], 5) / 3,
             "cand_ms": timed(lambda: [cand() for _ in range(3)], 5) / 3,
             "cand_table_ms": timed(table, 5),
-            "table_entries": int(counts.sum()), "table_width": int(order.shape[1])}
+            "table_entries": int(counts.sum()), "table_width": int(order.shape[1]),
+            "bound_ms": bound_ms}
+    line["share"] = bound_ms / line["cand_ms"]
     print(json.dumps(line), flush=True)
     if not same:
         fail("the candidate route changed a score of the chamfer's map->frame call")
@@ -2519,10 +2529,20 @@ SEQUENCE_RUNS = (
     ("active_window_12_seedless", "config", 12, {"MODEL__active_window": 163_840, **FUSED},
      True, True),
     ("sgd_12_seedless", "config", 12, {"OPTIMIZATION__optimizer": "SGD"}, True, True),
+    # The brute path with a voxel pass every 4th keyframe: the program's
+    # passes, launched with no read, against the loop's, on one map.
+    ("compact_voxel_12_seedless", "config", 12,
+     {"MODEL__compact_period": 4, "MODEL__compact_mode": "voxel",
+      "MODEL__compact_live_voxel": 0.01, **FUSED}, True, True),
 )
 # Seedless runs whose program must equal its loop to the bit (every abs_rel,
 # every map point, every pose): one optimizer code and cold searches in both.
-SEQUENCE_EXACT = ("active_window_12_seedless", "sgd_12_seedless")
+SEQUENCE_EXACT = ("active_window_12_seedless", "sgd_12_seedless", "compact_voxel_12_seedless")
+# Runs whose program's host synchronisations are counted
+# (``set_sync_debug_mode("warn")``): over the whole run, and from the end of
+# the capture (event 2) to the end of the last replay or pass, where a
+# compacting run must make none.
+SEQUENCE_SYNC_COUNTED = ("default_12", "compact_60")
 SEQUENCE_FIRST_TOL = 1e-3  # the first two keyframes' abs_rel, relative (the run tolerance)
 SEQUENCE_MEAN_TOL = 0.005  # mean abs_rel (PERF.md section 2)
 
@@ -2545,13 +2565,92 @@ def _seedless():
         refine.knn = points.knn = search
 
 
+class PassTimer:
+    """CUDA events around every ``compact_now`` call of ``engines`` (a
+    program's passes run inside ``compact_in_place``), recorded on the
+    current stream with no synchronisation; ``ms()`` reads them after the
+    run."""
+
+    def __init__(self, engines):
+        import torch
+
+        self.events = []
+        for engine in engines:
+            def timed(*args, _now=engine.compact_now, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _now(*args, **kw)
+                end.record()
+                self.events.append((start, end))
+                return out
+
+            engine.compact_now = timed
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+class _MarkedGraph:
+    """A captured graph whose every replay calls ``mark`` after it."""
+
+    def __init__(self, graph, mark):
+        self._graph, self._mark = graph, mark
+
+    def replay(self):
+        self._graph.replay()
+        self._mark()
+
+
+class SyncSpan:
+    """The host synchronisations a program run makes from the end of its
+    graph capture (the start of event 2) to the end of its last replay or
+    compaction pass: the ``set_sync_debug_mode("warn")`` warnings recorded
+    in ``caught`` (a ``warnings.catch_warnings(record=True)`` list) over
+    that span. ``owner`` captures the graph (``_capture_event``), each of
+    ``engines`` runs the program's passes (``compact_in_place``)."""
+
+    def __init__(self, owner, engines, caught):
+        self.caught, self.start, self.end = caught, None, None
+        capture = owner._capture_event
+
+        def captured(*args, **kw):
+            graph = capture(*args, **kw)
+            self.start = self.end = len(caught)
+            return _MarkedGraph(graph, self._mark)
+
+        owner._capture_event = captured
+        for engine in engines:
+            def marked(*args, _pass=engine.compact_in_place, **kw):
+                out = _pass(*args, **kw)
+                self._mark()
+                return out
+
+            engine.compact_in_place = marked
+
+    def _mark(self):
+        if self.start is not None:
+            self.end = len(self.caught)
+
+    @property
+    def syncs(self):
+        """None when no graph was captured."""
+        return None if self.start is None else self.end - self.start
+
+
 def _sequence_run(knn, workload, frames, program, rec=None, sync_warn=False, seedless=False,
                   **settings):
     """One run of a profile_adaptation workload cut to ``frames``, with
     deterministic algorithms and ``settings`` (``SECTION__key``: value),
-    through the whole-sequence program (its replays under
-    ``set_sync_debug_mode("error")``: a synchronisation raises) or the
-    per-keyframe loop. Returns (result, line); the line's ``launches`` are
+    through the whole-sequence program (its replays and compaction passes
+    under ``set_sync_debug_mode("error")``: a synchronisation raises) or the
+    per-keyframe loop. With ``sync_warn`` the host synchronisations are
+    counted, the program's also from event 2 to its end (``SyncSpan``); each
+    compaction pass is timed (``PassTimer``, ``pass_ms``). Returns (result,
+    line); the line's ``launches`` are
     the kernels' launches on the device: the eager ones plus each launch
     captured in the graph times its replays (the wrappers' counts and a
     Recorder see a captured launch once, at capture, where it does not
@@ -2583,11 +2682,13 @@ def _sequence_run(knn, workload, frames, program, rec=None, sync_warn=False, see
             return graph
 
         runner.engine._capture_event = counted
+    passes = PassTimer([runner.engine])
     _reset(knn)
     with algorithms(True), rec or contextlib.nullcontext(), \
             _seedless() if seedless else contextlib.nullcontext(), \
             warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
+        span = SyncSpan(runner.engine, [runner.engine], caught) if program and sync_warn else None
         if sync_warn:
             torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -2608,10 +2709,13 @@ def _sequence_run(knn, workload, frames, program, rec=None, sync_warn=False, see
             "abs_rel_first_two": [m["abs_rel"] for m in result["metrics"][:2]],
             "map_points": result["map_points"], "ate": result["ate"], "rpe": result["rpe"],
             "launches": launches, "captured_launches": captured, "replays": replays,
-            "compactions": [c["keyframe"] for c in result["compactions"]]}
+            "compactions": [c["keyframe"] for c in result["compactions"]],
+            "pass_ms": passes.ms()}
     if sync_warn:
         syncs = sum("synchroniz" in str(w.message) for w in caught)
         line.update(host_syncs=syncs, host_syncs_per_event=syncs / max(result["num_keyframes"], 1))
+        if span is not None:
+            line["host_syncs_from_event_2"] = span.syncs
     return result, line
 
 
@@ -2674,8 +2778,11 @@ def phase_sequence(knn, stats, smi):
     algorithms (``_check_pair``). First the data path alone: the default
     config's 12 frames at learning rate 0 (the network frozen), where the
     program must give the loop's every abs_rel and map point. No host
-    synchronisation inside a replay (the runs raise on one); host syncs an
-    event counted for default_12 (``set_sync_debug_mode("warn")``). The
+    synchronisation inside a replay or a compaction pass (the runs raise on
+    one); host syncs an event counted for SEQUENCE_SYNC_COUNTED
+    (``set_sync_debug_mode("warn")``), and none allowed from event 2 to the
+    end of compact_60's program; each pass's device time printed
+    (``pass_ms``, program and loop). The
     default program's captured candidate call, the chamfer program's
     captured map->frame resident call and a dense call on the former's
     inputs, all with the counts given as device tensors, are held against
@@ -2700,7 +2807,7 @@ def phase_sequence(knn, stats, smi):
             rec = Recorder(knn)
         elif label == "chamfer_12":
             rec = Recorder(knn, frame_rows=320 * 256)
-        sync_warn = label == "default_12"
+        sync_warn = label in SEQUENCE_SYNC_COUNTED
         prog, pline = _sequence_run(knn, workload, frames, True, rec, sync_warn, seedless,
                                     **settings)
         loop, lline = _sequence_run(knn, workload, frames, False, sync_warn=sync_warn,
@@ -2727,6 +2834,9 @@ def phase_sequence(knn, stats, smi):
             dense_args = (q4, r4, knn._tile_boxes(r4[:, :3], knn.RT), s0, i0, nq, nr, knn.RT)
             compare_call(knn, "dense", dense_args, "sequence inputs (device counts)", stats,
                          stats_key="dense_sequence")
+        if sync_warn and pline["compactions"] and pline["host_syncs_from_event_2"] != 0:
+            fail(f"sequence {label}: the program synchronised "
+                 f"{pline['host_syncs_from_event_2']} times from event 2 to its end")
         if label == "chamfer_12":
             if pline["captured_launches"]["resident"] == 0:
                 fail("sequence chamfer_12: the captured event launches no resident kernel")
@@ -2886,16 +2996,24 @@ PROGRAM_PROFILE_FRAMES = 8
 PROGRAM_CHAMFER_FRAMES = 8
 
 
-def _batched_program_run(knn, cfg, seqs, dispatch, *, seedless=False, frame_rows=None):
+def _batched_program_run(knn, cfg, seqs, dispatch, *, seedless=False, frame_rows=None,
+                         sync_warn=False):
     """One ``ParallelAdaptation`` run of ``seqs`` through ``dispatch``
-    (``run_batched``), with deterministic algorithms: the program's replays under
-    ``set_sync_debug_mode("error")`` (a synchronisation raises), the
-    launches each kernel made inside the captured event counted and its
-    calls there recorded (a Recorder with ``frame_rows``). Returns (line,
-    result, the capture's Recorder)."""
+    (``run_batched``), with deterministic algorithms: the program's replays
+    and compaction passes under ``set_sync_debug_mode("error")`` (a
+    synchronisation raises), the launches each kernel made inside the
+    captured event counted and its calls there recorded (a Recorder with
+    ``frame_rows``), each compaction pass timed (``PassTimer``,
+    ``pass_ms``). With ``sync_warn`` the host synchronisations are counted,
+    the program's also from event 2 to its end (``SyncSpan``). Returns
+    (line, result, the capture's Recorder)."""
+    import warnings
+
+    import torch
+
     from e2eslam_tpu_torch.apps.profile_adaptation import run_batched
 
-    captured, rec = {}, Recorder(knn, frame_rows=frame_rows)
+    captured, rec, probes = {}, Recorder(knn, frame_rows=frame_rows), {}
 
     def hook(par):
         par.par.engines[0].replay_sync_mode = "error"
@@ -2909,14 +3027,32 @@ def _batched_program_run(knn, cfg, seqs, dispatch, *, seedless=False, frame_rows
             return graph
 
         par._capture_event = counted
+        probes["passes"] = PassTimer(par.par.engines)
+        if sync_warn and dispatch == "whole":
+            probes["span"] = SyncSpan(par, par.par.engines, caught)
 
-    with algorithms(True), _seedless() if seedless else contextlib.nullcontext():
-        line, out = run_batched(cfg, seqs, dispatch=dispatch, runner_hook=hook)
+    counting = warnings.catch_warnings(record=True) if sync_warn else contextlib.nullcontext([])
+    with algorithms(True), _seedless() if seedless else contextlib.nullcontext(), \
+            counting as caught:
+        if sync_warn:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            line, out = run_batched(cfg, seqs, dispatch=dispatch, runner_hook=hook)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     replays = max(out["num_events"] - 2, 0) if out["graphs"] else 0
     eager = launch_counts(knn)
     line["launches"] = {k: n - captured.get(k, 0) + captured.get(k, 0) * replays
                         for k, n in eager.items()}
-    line.update(captured_launches=captured, replays=replays, seedless=seedless)
+    line.update(captured_launches=captured, replays=replays, seedless=seedless,
+                pass_ms=probes["passes"].ms(),
+                compactions=[[c["keyframe"] for c in r["compactions"]]
+                             for r in out["per_sequence"]])
+    if sync_warn:
+        line["host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+        if "span" in probes:
+            line["host_syncs_from_event_2"] = probes["span"].syncs
     return line, out, rec
 
 
@@ -2998,7 +3134,14 @@ def phase_batched_program(knn, stats, smi):
         captured call held against its plain version;
       * the flagship settings (``flagship_config``), PROGRAM_FLAGSHIP_FRAMES
         frames of ``make_sequences``: no KNN, the fused Adam: equal to the
-        bit.
+        bit;
+      * compaction inside the program: the default
+        config's ragged sequences with a voxel pass every 4th event,
+        seedless with the fused Adam, and the flagship sequences with a
+        projective pass every 10th (``compact_config``): equal to the bit,
+        the same passes with the same counts as the loop's, no host
+        synchronisation from event 2 to the end, each pass's device time
+        (``pass_ms``) beside the loop's.
     Then, with the default algorithms, each config timed (program, loop,
     loop, program for the default config, program and loop for the
     flagship: aggregate steps/s, ``capture_s``) and
@@ -3009,6 +3152,7 @@ def phase_batched_program(knn, stats, smi):
     launches per kernel (eager launches plus captured ones times replays)."""
     from e2eslam_tpu_torch.apps.profile_adaptation import (
         chamfer_config,
+        compact_config,
         flagship_config,
         make_sequences,
         profile_batched,
@@ -3102,6 +3246,36 @@ def phase_batched_program(knn, stats, smi):
         fail("batched_program flagship: the program parts from the loop")
     if any(fp["launches"].values()):
         fail(f"batched_program flagship: KNN launches {fp['launches']}")
+
+    # Compaction inside the program, each pass launched with no read.
+    vcfg = _batched_cfg()
+    vcfg.OPTIMIZATION.fused_update = True
+    vcfg.MODEL.update({"compact_period": 4, "compact_mode": "voxel"})
+    pcfg = compact_config(load_yaml(default_config_path()))
+    pcfg.DEMO.sequence_length = PROGRAM_FLAGSHIP_FRAMES
+    for name, c, data, seedless in (("default_voxel_seedless_fused", vcfg, seqs, True),
+                                    ("flagship_projective", pcfg, fseqs, False)):
+        pline, prun, _ = _batched_program_run(knn, c, data, "whole", seedless=seedless,
+                                              sync_warn=True)
+        lline, lrun, _ = _batched_program_run(knn, c, data, "event", seedless=seedless)
+        equal = _batched_equal(prun, lrun)
+        same_passes = all(x["compactions"] == y["compactions"] for x, y in
+                          zip(prun["per_sequence"], lrun["per_sequence"]))
+        print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                          "run": name, "program": pline, "loop": lline, "bitwise_equal": equal,
+                          "same_passes": same_passes, "gaps": _batched_gaps(prun, lrun),
+                          "nvidia_smi": smi}), flush=True)
+        if pline["dispatch"] != "whole" or pline["graphs"] != 1:
+            fail(f"batched_program {name}: the program ran {pline['dispatch']} with "
+                 f"{pline['graphs']} graphs")
+        if not all(pline["compactions"]) or not same_passes:
+            fail(f"batched_program {name}: passes {pline['compactions']} against the loop's "
+                 f"{lline['compactions']}")
+        if not equal:
+            fail(f"batched_program {name}: the program parts from the loop")
+        if pline["host_syncs_from_event_2"] != 0:
+            fail(f"batched_program {name}: the program synchronised "
+                 f"{pline['host_syncs_from_event_2']} times from event 2 to its end")
 
     # Default algorithms: timed in turns, then profiled.
     for name, c, x, turns in (("default", cfg, seqs, ("whole", "event", "event", "whole")),

@@ -286,7 +286,8 @@ class OnlineAdaptation(KeyframeViews):
 
     def _run_program(self, global_map, colors, gt_depths, K, poses, schedule):
         """The run through ``RefinementEngine.process_sequence``: one read of
-        the stacked metrics, poses and map count at the end."""
+        the stacked metrics, poses, compaction counts and map count at the
+        end."""
         engine = self.engine
         prev_idx = [p for p, _ in schedule]
         keyframes = [c for _, c in schedule]
@@ -300,9 +301,11 @@ class OnlineAdaptation(KeyframeViews):
         kf = global_map.kf_counter
         global_map = dataclasses.replace(global_map, count=int(global_map.count),
                                          kf_counter=None if kf is None else int(kf))
-        for c in info["compactions"]:
-            c["frame"] = keyframes[c["keyframe"]]
-        self.compactions = info["compactions"]
+        passes = info["compactions"]
+        counts = torch.stack([c.pop("counts") for c in passes]).tolist() if passes else []
+        for c, (before, after) in zip(passes, counts):
+            c.update(frame=keyframes[c["keyframe"]], before=before, after=after)
+        self.compactions = passes
         # Every event sorts the whole buffer afresh (brute path); every warm
         # event past the first takes the previous event's final KNN indices.
         if self._bucketed_sort and keyframes:

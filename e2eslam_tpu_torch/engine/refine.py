@@ -42,9 +42,11 @@ rate and each event's metrics stay on the device. On the CPU its events run
 eagerly. On a CUDA card the first two run eagerly on a side stream (they
 set up cuDNN, autograd and the optimizer's state), the body of one warm
 event is captured once as a CUDA graph, and events 2 to E-1 are its
-replays, fed their frame indices from pinned host memory; periodic
-compaction runs eagerly between replays. Every KNN launch inside the graph
-reads its valid counts on the device (``ops/knn.py``).
+replays, fed their frame indices from pinned host memory; a periodic
+compaction pass (``slam/compact.py``, fixed-shape) is launched between
+replays over a bucket of rows chosen from a host bound on the count, with
+no read. Every KNN launch inside the graph reads its valid counts on the
+device (``ops/knn.py``).
 
 Beside the PFT step, the offline apps' modes (``refine.py:1410-1537``):
 output fine-tuning (``oft_step``, ``oft_window``: Adam on the depth maps
@@ -1016,19 +1018,31 @@ class RefinementEngine:
                 for k, v in kc.items():
                     carry["kc"][k].copy_(v)
 
-    def compact_in_place(self, ms: MapState, pose: Tensor, K: Tensor) -> Tuple[int, int]:
-        """The configured compaction pass over the bucket of rows holding the
-        valid ones (``compact_switch``, refine.py:1317-1349), written back
-        into ``ms``'s own tensors. Reads the count before and after to the
-        host. Returns (count before, count after)."""
-        before = int(ms.count)
-        bucket = (compact_bucket(before, ms.data.shape[0])
+    def compact_in_place(self, ms: MapState, pose: Tensor, K: Tensor, bound: int) -> Tensor:
+        """The programs' compaction pass: the configured pass over the
+        bucket of rows that holds ``bound`` (a host-known upper bound on
+        ``ms``'s device count), written back into ``ms``'s own tensors with
+        nothing read to the host. The JAX program picks the smallest bucket
+        that holds the count (``compact_switch``, refine.py:1317-1349); any
+        larger one gives the same map, since every valid row lies in the
+        prefix and the rows past the count are zeros that take no part.
+        Returns the counts before and after, int64 ``[2]`` on the device."""
+        bucket = (compact_bucket(bound, ms.data.shape[0])
                   if bool(self.config.MODEL.get("compact_bucket", True)) else None)
         new = self.compact_now(ms, pose, K, bucket=bucket)
+        counts = torch.stack([ms.count, new.count]).to(torch.int64)
         if new.data.data_ptr() != ms.data.data_ptr():
             ms.data.copy_(new.data)
         store_map(ms, new)
-        return before, int(ms.count)
+        return counts
+
+    def fused_rows_bound(self, start: int, fused_frames: int) -> int:
+        """An upper bound on the count after ``fused_frames`` fusions from
+        a count of ``start``: each appends at most one row a pixel
+        (``slam/fusion.py``: the appends are the frame's unclaimed valid
+        pixels), capped at the capacity."""
+        H, W = int(self.config.DATA.height), int(self.config.DATA.width)
+        return min(start + fused_frames * H * W, self.map_capacity)
 
     def process_sequence(self, map_state: MapState, colors: Tensor, gt_depths: Tensor,
                          K: Tensor, poses: Tensor, prev_idx, cur_idx):
@@ -1041,20 +1055,25 @@ class RefinementEngine:
         ``MODEL.compact_period`` P the map is compacted after event ``e``
         when ``(e + 1) % P == 0``, from that event's estimated camera.
 
-        Nothing is read to the host before the end but compaction's counts.
-        On a CUDA device events 0 and 1 run eagerly on a side stream, one
-        warm event is captured as a CUDA graph and events 2..E-1 replay it
-        (a failed capture raises; nothing falls back to the per-keyframe
-        loop); on the CPU every event runs eagerly. ``map_state`` is updated
-        in place (its count becomes a device tensor).
+        Nothing is read to the host before the end. On a CUDA device events
+        0 and 1 run eagerly on a side stream, one warm event is captured as
+        a CUDA graph and events 2..E-1 replay it (a failed capture raises;
+        nothing falls back to the per-keyframe loop); on the CPU every
+        event runs eagerly. A compaction pass is
+        launched between events with no read (``compact_in_place``), over
+        the bucket that holds a host bound on the count. ``map_state`` is
+        updated in place (its count becomes a device tensor).
 
         Returns (map, metrics ``{name: [E]}`` of each event's last step,
         estimated poses ``[E, 4, 4]``, info: ``graphs`` captured,
-        ``capture_s``, ``compactions`` ``[{"keyframe", "before",
-        "after"}]``), all on the device but the info."""
+        ``capture_s``, ``compactions`` ``[{"keyframe", "counts"}]``, each
+        pass's counts before and after as int64 ``[2]``), all on the device
+        but the info's numbers."""
         E = len(prev_idx)
         dev = self.device
         cuda = dev.type == "cuda"
+        # A device count gives no host bound but the capacity.
+        start = map_state.count if isinstance(map_state.count, int) else map_state.data.shape[0]
         ms = on_device(map_state)
         out: Dict[str, Tensor] = {}
         est = torch.zeros(E, 4, 4, dtype=poses.dtype, device=dev)
@@ -1098,9 +1117,11 @@ class RefinementEngine:
                         self._sequence_event(seq, K, pair_i, ev_i, ms, carry, out, est,
                                              fuse_prev=e == 0)
                     if period and (e + 1) % period == 0:
-                        before, after = self.compact_in_place(ms, est[e], K)
-                        info["compactions"].append({"keyframe": e, "before": before,
-                                                    "after": after})
+                        # Event 0 fuses two frames, every later event one.
+                        bound = self.fused_rows_bound(start, e + 2)
+                        with _sync_debug(self.replay_sync_mode if cuda else None):
+                            counts = self.compact_in_place(ms, est[e], K, bound)
+                        info["compactions"].append({"keyframe": e, "counts": counts})
             if cuda and graph is None:
                 torch.cuda.current_stream(dev).wait_stream(side)
         finally:

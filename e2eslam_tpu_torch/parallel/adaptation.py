@@ -42,8 +42,9 @@ Two dispatches, as the JAX runner's (``adaptation.py:326-370``):
     0 and 1 run eagerly on a side stream, one warm event is captured as a
     CUDA graph and events 2..E-1 replay it (as
     ``RefinementEngine.process_sequence`` does for one sequence); on the
-    CPU every event runs eagerly, the same code. Compaction runs eagerly
-    between events, from the counts it reads. A ``data`` axis of D > 1
+    CPU every event runs eagerly, the same code. Compaction passes are
+    launched between events with no read, each over the bucket of rows
+    that holds a host bound on its map's count. A ``data`` axis of D > 1
     ranks captures one graph per rank; no collective runs inside it.
   * ``auto`` takes ``event`` at 8 sequences or more (the JAX rule), and
     wherever ``engine/adaptation.py::sequence_program_blocker`` stops the
@@ -311,7 +312,7 @@ class ParallelAdaptation:
         est = torch.zeros(n, E, 4, 4, dtype=poses.dtype, device=dev)
         carry: Dict = {}
         info = {"graphs": 0, "capture_s": 0.0}
-        compactions: List[List[Dict]] = [[] for _ in range(n)]
+        passes = []  # (sequence, event, device counts [2])
         period = int(cfg.MODEL.get("compact_period", 0) or 0)
         voxel = str(cfg.MODEL.get("compact_mode", "voxel") or "voxel") == "voxel"
         seq = (colors, gt_depths, K, poses)
@@ -339,13 +340,17 @@ class ParallelAdaptation:
                         self._feed(ins, pairs_h[e], act_h[e], ev_h[e])
                         self._event(state, seq, ins, maps, carry, out, est, fuse_prev=e == 0)
                     if period and (e + 1) % period == 0:
+                        # The JAX ``compact_batch``: projective passes where
+                        # the event was active, voxel passes for every map;
+                        # each over the bucket that holds its frames' rows.
                         for j in range(n):
                             if e < counts[j] or voxel:
-                                before, after = par.engines[j].compact_in_place(
-                                    maps[j], est[j, e], K[j])
-                                frame = events[e][j][1]
-                                compactions[j].append({"keyframe": e, "frame": frame,
-                                                       "before": before, "after": after})
+                                engine = par.engines[j]
+                                fused = min(e + 1, counts[j]) + 1 if counts[j] else 0
+                                bound = engine.fused_rows_bound(0, fused)
+                                with _sync_debug(sync_mode if cuda else None):
+                                    passes.append((j, e, engine.compact_in_place(
+                                        maps[j], est[j, e], K[j], bound)))
             if cuda and graph is None:
                 torch.cuda.current_stream(dev).wait_stream(side)
         finally:
@@ -356,6 +361,12 @@ class ParallelAdaptation:
         table = (torch.stack([out[k].double() for k in names]).cpu().numpy() if names
                  else np.zeros((0, n, E)))
         est_np = est.cpu().numpy()
+        compactions: List[List[Dict]] = [[] for _ in range(n)]
+        if passes:
+            for (j, e, _), (before, after) in zip(
+                    passes, torch.stack([c for _, _, c in passes]).tolist()):
+                compactions[j].append({"keyframe": e, "frame": events[e][j][1],
+                                       "before": before, "after": after})
         keyframes = [[c for _, c in s] for s in schedules]
         metrics = [[{k: float(table[i, j, e]) for i, k in enumerate(names)}
                     for e in range(counts[j])] for j in range(n)]

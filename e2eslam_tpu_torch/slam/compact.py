@@ -26,10 +26,11 @@ Plain torch, as the JAX package's is XLA. The hashes multiply in int64 and
 keep the table's low bits (the JAX package's int32 products wrap; their
 low bits are the same), and float -> int conversions saturate as JAX's do.
 The weighted sum is one ``index_add_`` (deterministic on the card under
-``torch.use_deterministic_algorithms``). The new count is one host read
-per pass for an int count; a tensor count (the whole-sequence program's)
-comes back as a tensor, and the pass still reads its masks' sizes: it runs
-eagerly, between the program's replays.
+``torch.use_deterministic_algorithms``). The pass is fixed-shape, as the
+JAX package's (``e2eslam_tpu/slam/compact.py:79-178``): no boolean-mask
+index and no shape that depends on the count, so a tensor count (the
+programs') comes back as a tensor with nothing read to the host; an int
+count (the per-keyframe loop's) comes back as an int, one host read.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def _per(x: Tensor, size: float) -> Tensor:
     (which differs from the quotient in the last bit, enough to move a
     point across a voxel's or a depth bin's edge)."""
     one = torch.ones((), dtype=x.dtype, device=x.device)
-    return x * (one / torch.tensor(size, dtype=x.dtype, device=x.device))
+    return x * (one / torch.full((), size, dtype=x.dtype, device=x.device))
 
 
 def _voxel_hash(points: Tensor, voxel: float, table_size: int):
@@ -66,26 +67,40 @@ def _compact_rows(m: MapState, key: Tensor, coord: Tensor, table_size: int,
                   normal_cos: Optional[float] = None) -> MapState:
     """Merge rows that share a bucket (``key`` in [0, table_size)) and a
     coordinate (``coord`` [N, C]); with ``normal_cos``, only where a row's
-    normal agrees with its winner's (the winner always passes)."""
+    normal agrees with its winner's (the winner always passes).
+
+    The JAX pass sends every row it drops to one address three times: the
+    invalid rows to the dropped bucket of the winner table, the rows that do
+    not merge to the accumulator's sink row, the rows not kept to the packing's
+    sink. On the card each is millions of same-address atomics or stores, so
+    here every row writes its own address: an invalid row scatters ``N`` (a
+    no-op under ``amin`` against the table's ``N`` fill) into the bucket of
+    its own row number; a row that does not merge adds its zeros into its own
+    accumulator row (it is nobody's winner, since a winner always merges into
+    itself, so that row is never read); and the packing is a permutation,
+    the survivors to the prefix in row order and the dropped rows, zeroed,
+    after them. Every winner sums the same rows in the same order."""
     N = m.data.shape[0]
     dev = m.data.device
     rows = torch.arange(N, dtype=torch.int64, device=dev)
     valid = rows < m.count
-    # The lowest row of each occupied bucket wins; invalid rows take no part.
+    none = torch.full_like(rows, N)
+    # The lowest valid row of each occupied bucket wins.
     table = torch.full((table_size,), N, dtype=torch.int64, device=dev)
-    table.scatter_reduce_(0, key[valid], rows[valid], reduce="amin")
-    winner = torch.where(valid, table[key.clamp(0, table_size - 1)], torch.full_like(rows, N))
+    table.scatter_reduce_(0, torch.where(valid, key, rows & (table_size - 1)),
+                          torch.where(valid, rows, none), reduce="amin")
+    winner = torch.where(valid, table.index_select(0, key), none)
     wsafe = winner.clamp(max=N - 1)
-    same = valid & (coord == coord[wsafe]).all(dim=-1)
-    is_winner = valid & (winner == rows)
+    is_winner = winner == rows
+    same = valid & (coord == coord.index_select(0, wsafe)).all(dim=-1)
     if normal_cos is not None:
-        dot = (m.normals * m.normals[wsafe]).sum(dim=-1)
+        dot = (m.normals * m.normals.index_select(0, wsafe)).sum(dim=-1)
         same = same & ((dot >= normal_cos) | is_winner)
     # The confidence-weighted sum of every merging row, into its winner.
     w = torch.where(same, m.confidence, torch.zeros_like(m.confidence))
     fields = torch.cat([m.data[:, :9] * w[:, None], w[:, None]], dim=-1)
     acc10 = torch.zeros(N, 10, dtype=m.data.dtype, device=dev)
-    acc10.index_add_(0, wsafe[same], fields[same])
+    acc10.index_add_(0, torch.where(same, wsafe, rows), fields)
     acc, wsum = acc10[:, :9], acc10[:, 9]
     merged = acc / wsum.clamp(min=1e-12)[:, None]
     nrm = merged[:, 3:6]
@@ -94,22 +109,24 @@ def _compact_rows(m: MapState, key: Tensor, coord: Tensor, table_size: int,
     merged = torch.cat([merged[:, 0:3], nrm, merged[:, 6:9], wsum[:, None],
                         m.data.new_zeros(N, ROW - 10)], dim=-1)
     # Survivors: winners (merged) and rows that kept apart (untouched),
-    # packed to the prefix in row order.
+    # packed to the prefix in row order; the rest, zeroed, after them.
     keep = is_winner | (valid & ~same)
-    out_rows = torch.where(is_winner[:, None], merged, m.data)
-    dest = torch.cumsum(keep.to(torch.int64), 0) - 1
-    data = torch.zeros_like(m.data)
-    data[dest[keep]] = out_rows[keep]
-    count = keep.sum() if isinstance(m.count, Tensor) else int(keep.sum())
+    out_rows = torch.where(is_winner[:, None], merged,
+                           torch.where(keep[:, None], m.data, torch.zeros_like(m.data)))
+    kept = torch.cumsum(keep.to(torch.int64), 0)
+    n_keep = kept[-1]
+    dest = torch.where(keep, kept - 1, n_keep + rows - kept)
+    data = torch.empty_like(m.data).index_copy_(0, dest, out_rows)
+    count = n_keep if isinstance(m.count, Tensor) else int(n_keep)
     # Each valid old row's new home: its own packed slot, or its winner's.
-    home = torch.where(keep, dest, torch.full_like(dest, N))
-    row_map = torch.where(same & ~is_winner, home[wsafe], home)
-    row_map = torch.where(valid, row_map, torch.full_like(row_map, N))
+    home = torch.where(keep, dest, none)
+    row_map = torch.where(same & ~is_winner, home.index_select(0, wsafe), home)
+    row_map = torch.where(valid, row_map, none)
 
     def remap(idx):
         if idx is None:
             return None
-        new = row_map[idx.long().clamp(0, N - 1)]
+        new = row_map.index_select(0, idx.reshape(-1).long().clamp(0, N - 1)).view(idx.shape)
         return torch.where((idx >= 0) & (new < N), new, torch.full_like(new, -1)).to(idx.dtype)
 
     return dataclasses.replace(m, data=data, count=count, index_image=remap(m.index_image),

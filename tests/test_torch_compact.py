@@ -7,7 +7,10 @@ carried over to the port (``map_from_arrays``). Each pass, voxel and
 projective, runs on both: the counts are equal, the packed rows agree to
 float32 rounding (1e-6; the confidence-weighted sums add the same rows in
 the same order on the CPU), the rows past the count are zero, and both
-index images are equal element for element.
+index images are equal element for element. The pass is fixed-shape:
+from a device count it reads nothing to the host (``_NoHostRead``), and a
+bucket above the count (the host bound the programs take) gives the full
+pass's map.
 """
 
 import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
@@ -19,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from e2eslam_tpu.data.synthetic import SyntheticDataset
 from e2eslam_tpu.slam import compact as jax_compact
@@ -30,7 +34,7 @@ from e2eslam_tpu_torch.config import default_config_path, load_yaml
 from e2eslam_tpu_torch.engine.refine import RefinementEngine
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
 from e2eslam_tpu_torch.slam.compact import compact_map, compact_map_projective
-from e2eslam_tpu_torch.slam.pointclouds import map_from_arrays
+from e2eslam_tpu_torch.slam.pointclouds import map_from_arrays, on_device
 
 H, W = 64, 80
 
@@ -148,24 +152,94 @@ def test_projective_gates():
     assert compact_map(pm, voxel=0.05).count < len(pts) - 1
 
 
-@pytest.mark.parametrize("mode", ["voxel", "projective"])
-def test_bucketed_compact_now_equals_full_pass(seq, maps, mode):
-    """``compact_now`` over ``data[:bucket]``, written back into the full
-    buffer, equals the pass over the whole buffer."""
-    _, K, poses = seq
+def _engine(mode):
     cfg = load_yaml(default_config_path())
     cfg.DATA.height, cfg.DATA.width = H, W
     cfg.MODEL.compact_mode = mode
     cfg.MODEL.compact_live_voxel = 0.03
-    eng = RefinementEngine(cfg, make_depth_model(cfg), map_capacity=4 * H * W,
-                           device=torch.device("cpu"))
+    return RefinementEngine(cfg, make_depth_model(cfg), map_capacity=4 * H * W,
+                            device=torch.device("cpu"))
+
+
+def _copy(m, device_count=False):
+    m = dataclasses.replace(m, data=m.data.clone())
+    return on_device(m) if device_count else m
+
+
+@pytest.mark.parametrize("device_count", [False, True])
+@pytest.mark.parametrize("mode", ["voxel", "projective"])
+def test_bucketed_compact_now_equals_full_pass(seq, maps, mode, device_count):
+    """``compact_now`` over ``data[:bucket]``, written back into the full
+    buffer, equals the pass over the whole buffer (rows, count, both index
+    images) for any bucket that holds the count: just above it, and the
+    buffer's last rows (a host bound far past the count, as the programs
+    take it). From a device count the count stays a tensor."""
+    _, K, poses = seq
+    eng = _engine(mode)
     m = _port(maps["index"])
     pose, Kt = torch.from_numpy(poses[2]), torch.from_numpy(K)
-    full = eng.compact_now(dataclasses.replace(m, data=m.data.clone()), pose, Kt)
-    bucket = m.count + 100
-    part = eng.compact_now(dataclasses.replace(m, data=m.data.clone()), pose, Kt, bucket=bucket)
-    assert part.data.shape == m.data.shape
-    assert part.count == full.count < m.count
-    assert torch.equal(part.data[:bucket], full.data[:bucket])
-    assert torch.equal(part.index_image, full.index_image)
-    assert torch.equal(part.index_image2, full.index_image2)
+    full = eng.compact_now(_copy(m), pose, Kt)
+    for bucket in (m.count + 100, m.data.shape[0] - 1):
+        part = eng.compact_now(_copy(m, device_count), pose, Kt, bucket=bucket)
+        assert isinstance(part.count, torch.Tensor) == device_count
+        assert part.data.shape == m.data.shape
+        assert int(part.count) == full.count < m.count
+        assert torch.equal(part.data, full.data)
+        assert torch.equal(part.index_image, full.index_image)
+        assert torch.equal(part.index_image2, full.index_image2)
+
+
+class _NoHostRead(TorchDispatchMode):
+    """Raises on an op that reads a device value to the host: a scalar
+    read (``.item()``, ``int()``, ``bool()``), a nonzero count, a masked
+    select or a boolean-mask index."""
+
+    BANNED = {torch.ops.aten._local_scalar_dense, torch.ops.aten.nonzero,
+              torch.ops.aten.masked_select}
+    INDEXED = {torch.ops.aten.index, torch.ops.aten.index_put, torch.ops.aten.index_put_}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        op = func.overloadpacket
+        if op in self.BANNED:
+            raise AssertionError(f"{func} reads to the host")
+        if op in self.INDEXED and any(
+                t is not None and t.dtype in (torch.bool, torch.uint8) for t in args[1]):
+            raise AssertionError(f"{func} takes a boolean mask")
+        return func(*args, **(kwargs or {}))
+
+
+def test_no_host_read_catches_the_mask_index():
+    x = torch.arange(6.0)
+    with pytest.raises(AssertionError, match="boolean mask"), _NoHostRead():
+        x[x > 2]
+    with pytest.raises(AssertionError, match="reads to the host"), _NoHostRead():
+        int(x.sum())
+
+
+@pytest.mark.parametrize("mode", ["voxel", "projective", "bucketed"])
+def test_compaction_reads_nothing_to_the_host(seq, maps, mode):
+    """A pass on a map with a device count (voxel, projective, and the
+    engine's projective pass over a bucket above the count) runs with no
+    host read and gives the int-count pass's rows, count and index images,
+    its count a tensor."""
+    _, K, poses = seq
+    m = _port(maps["index"])
+    pose, Kt = torch.from_numpy(poses[2]), torch.from_numpy(K)
+    eng = _engine("projective") if mode == "bucketed" else None
+
+    def run(x):
+        if mode == "voxel":
+            return compact_map(x, voxel=0.03)
+        if mode == "projective":
+            return compact_map_projective(x, pose, Kt, height=H, width=W)
+        return eng.compact_now(x, pose, Kt, bucket=m.count + 300)
+
+    want = run(_copy(m))
+    dev = _copy(m, device_count=True)
+    with _NoHostRead():
+        got = run(dev)
+    assert isinstance(got.count, torch.Tensor)
+    assert int(got.count) == want.count < m.count
+    assert torch.equal(got.data, want.data)
+    assert torch.equal(got.index_image, want.index_image)
+    assert torch.equal(got.index_image2, want.index_image2)

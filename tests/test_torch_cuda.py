@@ -806,12 +806,14 @@ def test_captured_event_equals_the_eager_event(card, over):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("over", [{}, {"MODEL.compact_period": 2}], ids=["plain", "compact"])
+@pytest.mark.parametrize("over", [{}, {"MODEL.compact_period": 2},
+                                  {"MODEL.compact_period": 2, "MODEL.compact_mode": "projective"}],
+                         ids=["plain", "compact", "compact_projective"])
 def test_replays_make_no_host_synchronisation(card, over):
     """The replay loop (each event's pinned index copies and its graph
-    replay) raises nothing under set_sync_debug_mode("error"); the run
-    reads the card only after its last event (and in compaction, between
-    replays)."""
+    replay) and the compaction passes between replays raise nothing under
+    set_sync_debug_mode("error"); the run reads the card only after its
+    last event."""
     runner = _sequence_runner(**over)
     runner.engine.replay_sync_mode = "error"
     result = runner.run(verbose=False)

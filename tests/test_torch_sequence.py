@@ -7,13 +7,16 @@ Runs: 64x64, 6 frames (5 keyframe events), R = 2, the JAX runner's
 weights carried over (``models/convert.py``), both runners through their
 programs (``OnlineAdaptation.run`` with ``verbose=False``): the default
 brute three3d, the flagship settings (index fusion and association) in
-float32, the brute path with compaction every 2nd event, gradICP
-odometry, ``MODEL.active_window`` and the SGD optimizer. Tolerances, as
+float32, the brute path with compaction every 2nd event (voxel and
+projective passes), gradICP odometry, ``MODEL.active_window`` and the SGD
+optimizer. Tolerances, as
 for the runs of ``tests/test_torch_pft_runs.py``: equal keyframes; each
 of the first two events' last-step metrics within 1e-3 relative; the map
 count within max(4, count // 1000), the JAX
 package's own tie allowance (tests/test_engine.py:506-508); equal
-compaction events; estimated poses within 1e-4.
+compaction events; estimated poses within 1e-4. The program reads no count
+around a pass: each pass's recorded counts (on the device, read at the end)
+equal the counts read on the host around the same pass.
 
 The JAX search on the CPU is its XLA fallback, which ignores warm-start
 seeds (e2eslam_tpu/ops/knn.py:890-904); the port's plain versions take
@@ -67,6 +70,7 @@ FLAGSHIP_F32 = {  # bench.py::flagship_cfg's settings, the CNN in float32
     "MODEL.index_search_radius": 0, "MODEL.index_levels": 2, "LOSS.index_assoc_levels": 1,
     "OPTIMIZATION.fused_update": True, "ABLATION.median_stride": 4}
 RUNS = {"brute": {}, "index": FLAGSHIP_F32, "compact": {"MODEL.compact_period": 2},
+        "compact_projective": {"MODEL.compact_period": 2, "MODEL.compact_mode": "projective"},
         "gradicp": {"MODEL.odom": "gradicp"},
         # The active window: fusion associates with the newest 6,000 rows
         # (about 1.5 frames at 64x64), its start following the device count.
@@ -90,7 +94,9 @@ def run_both(over, monkeypatch):
     """The JAX runner's program and the port's on the same config and
     weights. Returns ({seeds: port run} with the KNN's warm-start seeds
     dropped and taken, the JAX run, the JAX side's compaction passes as
-    (count before, count after), read through ``jax.debug.callback``)."""
+    (count before, count after), read through ``jax.debug.callback``).
+    Each port run's ``host_counts`` holds its passes' counts read on the
+    host around ``compact_now``."""
     events = []
     for name in ("compact_map", "compact_map_projective"):
         orig = getattr(jax_compact, name)
@@ -112,7 +118,17 @@ def run_both(over, monkeypatch):
             if not seeds:
                 m.setattr(refine_mod, "knn", _seedless(refine_mod.knn))
                 m.setattr(points_mod, "knn", _seedless(points_mod.knn))
-            runs[seeds] = port_run(over, weights)
+            host = []
+            now = refine_mod.RefinementEngine.compact_now
+
+            def read(engine, ms, *a, _now=now, _host=host, **kw):
+                before = int(ms.count)
+                out = _now(engine, ms, *a, **kw)
+                _host.append((before, int(out.count)))
+                return out
+
+            m.setattr(refine_mod.RefinementEngine, "compact_now", read)
+            runs[seeds] = {**port_run(over, weights), "host_counts": host}
     return runs, want, events
 
 
@@ -158,6 +174,8 @@ def test_sequence_program_matches_jax(name, monkeypatch):
             expected = [k for k in range(len(got["keyframes"])) if (k + 1) % period == 0]
             assert [c["keyframe"] for c in got["compactions"]] == expected
             assert len(events) == len(expected)
+            assert [(c["before"], c["after"]) for c in got["compactions"]] == \
+                got["host_counts"]
             for c, (before, after) in zip(got["compactions"], events):
                 assert c["after"] < c["before"]
                 for mine, theirs in ((c["before"], before), (c["after"], after)):
@@ -352,10 +370,12 @@ def test_inactive_fusion_leaves_the_map(impl):
     assert torch.equal(a.data, b.data)
 
 
-def test_append_and_compaction_keep_a_tensor_count():
-    """ICPSLAM's append and a voxel compaction pass: equal rows and counts
-    from an int and a tensor count (the tensor stays a tensor)."""
-    from e2eslam_tpu_torch.slam.compact import compact_map
+@pytest.mark.parametrize("mode", ["voxel", "projective"])
+def test_append_and_compaction_keep_a_tensor_count(mode):
+    """ICPSLAM's append and a compaction pass (voxel, or projective from
+    the second frame's camera): equal rows and counts from an int and a
+    tensor count (the tensor stays a tensor)."""
+    from e2eslam_tpu_torch.slam.compact import compact_map, compact_map_projective
     from e2eslam_tpu_torch.slam.pointclouds import empty_map, on_device
     from e2eslam_tpu_torch.slam.slam import _append_frame
 
@@ -367,7 +387,9 @@ def test_append_and_compaction_keep_a_tensor_count():
         m = on_device(m) if dev_count else m
         for f in frames:
             m = _append_frame(m, f)
-        out.append((m, compact_map(m, voxel=0.05)))
+        f = frames[-1]
+        out.append((m, compact_map(m, voxel=0.05) if mode == "voxel" else
+                    compact_map_projective(m, f.pose, f.intrinsics, height=16, width=20)))
     (a, ca), (b, cb) = out
     assert isinstance(b.count, torch.Tensor) and int(b.count) == a.count == 2 * 16 * 20 - 50
     assert torch.equal(a.data, b.data)
