@@ -175,7 +175,25 @@ Phases (any failure ends the script with a non-zero exit):
               former's inputs held against the plain versions with the
               counts as device tensors; steps/s with and without the
               capture time;
- 14. small    the default path, the chamfer one, index fusion and
+ 14. observability  the online runner's observability outputs
+              (``VIZ.log_gradients``, ``DEBUG.plot`` with no PNG, the card's
+              machine having no matplotlib, ``SETTINGS.log_path``,
+              ``VIZ.profile_dir``) on OBS_FRAMES frames of configs/config.yaml
+              with deterministic algorithms: the observed run takes the
+              whole-sequence program (one graph, replays under
+              set_sync_debug_mode("error"), no host synchronisation from
+              event 2 to its end), held against the observed loop as
+              ``sequence`` holds its shipped rows; its JSONL holds one step
+              per keyframe with every scalar metric and a finite
+              ``grad_norm/`` for every parameter, 0 for the frozen ones; its
+              trace parses and holds the candidate and resident ``_dc``
+              kernels (counts printed beside the launches); seedless with the
+              fused Adam the program's norms and images equal the loop's to
+              the bit; steps/s of the observed program, the unobserved one,
+              the observed loop and the traced program (default algorithms,
+              printed); the CLI with ``VIZ.plot_final_step`` writes a PLY of
+              min(map points, 200,000) vertices;
+ 15. small    the default path, the chamfer one, index fusion and
               association (float32), the flagship settings, gradICP, the
               voxel association, the ICL sequence and the compact workload
               at 64x64 on the card, with deterministic
@@ -3056,12 +3074,26 @@ def _batched_program_run(knn, cfg, seqs, dispatch, *, seedless=False, frame_rows
     return line, out, rec
 
 
+def _metrics_equal(a, b) -> bool:
+    """Whether two runs' per-keyframe metrics agree to the bit, the nested
+    gradient norms and debug images (arrays) included."""
+    import numpy as np
+
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_metrics_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(map(_metrics_equal, a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
 def _batched_equal(a, b):
     """Whether two runs' sequences agree to the bit: keyframes, every
     keyframe's metrics, map points, estimated poses."""
     import numpy as np
 
-    return all(x["keyframes"] == y["keyframes"] and x["metrics"] == y["metrics"]
+    return all(x["keyframes"] == y["keyframes"] and _metrics_equal(x["metrics"], y["metrics"])
                and x["map_points"] == y["map_points"]
                and np.array_equal(x["est_poses"], y["est_poses"])
                for x, y in zip(a["per_sequence"], b["per_sequence"]))
@@ -3277,6 +3309,32 @@ def phase_batched_program(knn, stats, smi):
             fail(f"batched_program {name}: the program synchronised "
                  f"{pline['host_syncs_from_event_2']} times from event 2 to its end")
 
+    # The observability outputs (each sequence's gradient norms and debug
+    # images) carried by the program, seedless with the fused Adam.
+    ocfg = _batched_cfg()
+    ocfg.OPTIMIZATION.fused_update = True
+    ocfg.VIZ.log_gradients, ocfg.DEBUG.plot, ocfg.DEBUG.plot_path = True, True, None
+    op, oprog, _ = _batched_program_run(knn, ocfg, seqs, "whole", seedless=True, sync_warn=True)
+    ol, oloop, _ = _batched_program_run(knn, ocfg, seqs, "event", seedless=True)
+    equal = _batched_equal(oprog, oloop)
+    carried = all("grad_norms" in m and "debug_images" in m
+                  for r in (oprog, oloop) for x in r["per_sequence"] for m in x["metrics"])
+    print(json.dumps({"phase": "batched_program", "phase_s": time.perf_counter() - t0,
+                      "run": "default_observed_seedless_fused", "program": op, "loop": ol,
+                      "bitwise_equal": equal, "outputs_carried": carried,
+                      "gaps": _batched_gaps(oprog, oloop), "nvidia_smi": smi}), flush=True)
+    if op["dispatch"] != "whole" or op["graphs"] != 1:
+        fail(f"batched_program default_observed_seedless_fused: the program ran "
+             f"{op['dispatch']} with {op['graphs']} graphs")
+    if not carried:
+        fail("batched_program default_observed_seedless_fused: a keyframe lacks its norms "
+             "or images")
+    if not equal:
+        fail("batched_program default_observed_seedless_fused: the program parts from the loop")
+    if op["host_syncs_from_event_2"] != 0:
+        fail(f"batched_program default_observed_seedless_fused: the program synchronised "
+             f"{op['host_syncs_from_event_2']} times from event 2 to its end")
+
     # Default algorithms: timed in turns, then profiled.
     for name, c, x, turns in (("default", cfg, seqs, ("whole", "event", "event", "whole")),
                               ("flagship", fcfg, fseqs, ("whole", "event"))):
@@ -3314,6 +3372,158 @@ def phase_batched_program(knn, stats, smi):
     return launches
 
 
+# --- the online runner's observability outputs -------------------------------
+
+OBS_FRAMES = 12
+OBSERVED = {"VIZ__log_gradients": True, "DEBUG__plot": True, "DEBUG__plot_path": None}
+OBS_KERNELS = ("knn_cand_kernel_dc", "knn_resident_kernel_dc")
+
+
+def _log_steps(path):
+    """A ScalarLogger JSONL's lines grouped by step: {step: {key: value}}."""
+    steps = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            steps.setdefault(rec.pop("step"), {}).update(rec)
+    return steps
+
+
+def _trace_kernels(path, names):
+    """How many kernel events of each of ``names`` (a prefix of the
+    demangled name) a Chrome trace holds, and its event count."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {n: sum(k.startswith(n) for k in kernels) for n in names}, len(events)
+
+
+def _frozen_parameters(cfg):
+    """The network's parameters the engine freezes (batch norm's, with
+    ``MODEL.refinement_mode``) and every parameter's name."""
+    import torch
+
+    from e2eslam_tpu_torch.models.depth_net import make_depth_model
+
+    model = make_depth_model(cfg)
+    frozen = {f"{mn}.{pn}" for mn, m in model.named_modules()
+              if isinstance(m, torch.nn.BatchNorm2d)
+              for pn, _ in m.named_parameters(recurse=False)} if cfg.MODEL.refinement_mode else set()
+    return frozen, [n for n, _ in model.named_parameters()]
+
+
+def _steps_per_sec(program, **settings):
+    """One run of OBS_FRAMES frames of configs/config.yaml with the default
+    algorithms and ``settings``, through the program or the loop: its
+    steps/s, and its trace's size in bytes (None without one)."""
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+    from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+
+    cfg = load_yaml(default_config_path())
+    cfg.DEMO.sequence_length = OBS_FRAMES
+    for key, value in settings.items():
+        sec, flag = key.split("__")
+        cfg[sec][flag] = value
+    runner = OnlineAdaptation(cfg)
+    runner.use_sequence_program = program
+    result = runner.run(verbose=False)
+    if result["sequence_program"] != program:
+        fail(f"observability: a timed run took the {'loop' if program else 'program'}")
+    trace = result["profile_trace"]
+    return result["steps_per_sec"], os.path.getsize(trace) if trace else None
+
+
+def phase_observability(knn, smi):
+    """The online runner's observability outputs (``SETTINGS.log_path``,
+    ``VIZ.log_gradients``, ``DEBUG.plot``, ``VIZ.profile_dir``,
+    ``VIZ.plot_final_step``) on OBS_FRAMES frames of configs/config.yaml at
+    320x256: the observed run takes the program, as the JAX runner's does
+    (the checks of the docstring's phase 14). Returns the observed
+    program's device launches per kernel (eager launches plus captured ones
+    times replays)."""
+    import glob
+
+    from e2eslam_tpu_torch.apps import online_adaption
+    from e2eslam_tpu_torch.config import default_config_path, load_yaml
+
+    t0 = time.perf_counter()
+    base = os.path.join(OUT_DIR, "observability")
+    log_dir, trace_dir, map_dir = (os.path.join(base, d) for d in ("log", "trace", "map"))
+    # As it ships: the observed program, logged and traced, against the
+    # observed loop.
+    prog, pline = _sequence_run(knn, "config", OBS_FRAMES, True, sync_warn=True,
+                                SETTINGS__log_path=log_dir, VIZ__profile_dir=trace_dir,
+                                **OBSERVED)
+    loop, lline = _sequence_run(knn, "config", OBS_FRAMES, False, **OBSERVED)
+    gaps = _check_pair("observed_12", prog, loop, pline, lline, False)
+    cfg = load_yaml(default_config_path())
+    frozen, names = _frozen_parameters(cfg)
+    steps = _log_steps(os.path.join(log_dir, f"{cfg.SETTINGS.name}.jsonl"))
+    scalars = [k for k, v in prog["metrics"][0].items() if not isinstance(v, dict)]
+    wanted = set(scalars) | {f"grad_norm/{n}" for n in names}
+    bad_steps = [i for i, rec in steps.items()
+                 if not wanted <= set(rec) or not all(map(_finite, rec.values()))]
+    nonzero_frozen = [n for rec in steps.values() for n in frozen if rec[f"grad_norm/{n}"] != 0.0]
+    counts, trace_events = _trace_kernels(prog["profile_trace"], OBS_KERNELS)
+    print(json.dumps({"phase": "observability", "phase_s": time.perf_counter() - t0,
+                      "run": "observed_12", "program": pline, "loop": lline, "gaps": gaps,
+                      "log_steps": len(steps), "log_keys": len(wanted),
+                      "trace_bytes": os.path.getsize(prog["profile_trace"]),
+                      "trace_events": trace_events, "trace_kernels": counts,
+                      "launches": pline["launches"], "nvidia_smi": smi}), flush=True)
+    if pline["host_syncs_from_event_2"] != 0:
+        fail(f"observability: the observed program synchronised "
+             f"{pline['host_syncs_from_event_2']} times from event 2 to its end")
+    if sorted(steps) != list(range(prog["num_keyframes"])) or bad_steps or nonzero_frozen:
+        fail(f"observability: the scalar log has steps {sorted(steps)}, incomplete or "
+             f"non-finite steps {bad_steps}, frozen norms not 0 {nonzero_frozen[:4]}")
+    if not all(counts.values()):
+        fail(f"observability: the trace holds kernels {counts}")
+
+    # Seedless with the fused Adam: the program's norms and images are the
+    # loop's, to the bit.
+    fused = {**OBSERVED, "OPTIMIZATION__fused_update": True}
+    sp, spl = _sequence_run(knn, "config", OBS_FRAMES, True, seedless=True, **fused)
+    sl, sll = _sequence_run(knn, "config", OBS_FRAMES, False, seedless=True, **fused)
+    equal = {k: _metrics_equal([m[k] for m in sp["metrics"]], [m[k] for m in sl["metrics"]])
+             for k in ("grad_norms", "debug_images")}
+    print(json.dumps({"phase": "observability", "phase_s": time.perf_counter() - t0,
+                      "run": "observed_12_seedless_fused", "bitwise_equal": equal,
+                      "gaps": _check_pair("observed_12_seedless_fused", sp, sl, spl, sll, True),
+                      "nvidia_smi": smi}), flush=True)
+    if not all(equal.values()):
+        fail(f"observability: the seedless program's outputs part from the loop's: {equal}")
+
+    # Timed with the default algorithms (printed, not checked).
+    timed = {"observed_program": _steps_per_sec(True, **OBSERVED),
+             "program": _steps_per_sec(True),
+             "observed_loop": _steps_per_sec(False, **OBSERVED),
+             "traced_observed_program": _steps_per_sec(
+                 True, VIZ__profile_dir=os.path.join(base, "timed_trace"), **OBSERVED)}
+    print(json.dumps({"phase": "observability", "phase_s": time.perf_counter() - t0,
+                      "run": "timed", "frames": OBS_FRAMES,
+                      "steps_per_sec": {k: v[0] for k, v in timed.items()},
+                      "trace_bytes": timed["traced_observed_program"][1],
+                      "nvidia_smi": smi}), flush=True)
+
+    # The CLI's final map.
+    result = online_adaption.main([
+        "--config_path", default_config_path(), "--name", "observability",
+        "--set", f"DEMO.sequence_length={OBS_FRAMES}", "--set", "DEBUG.print_metrics=false",
+        "--set", "VIZ.plot_final_step=true", "--set", f"DEBUG.plot_path={map_dir}"])
+    plys = glob.glob(os.path.join(map_dir, "*.ply"))
+    with open(os.path.join(map_dir, "observability_map.ply")) as f:
+        vertices = int([next(f) for _ in range(3)][2].split()[-1])
+    print(json.dumps({"phase": "observability", "phase_s": time.perf_counter() - t0,
+                      "run": "cli_final_map", "map_points": result["map_points"],
+                      "ply_vertices": vertices, "files": [os.path.basename(x) for x in plys],
+                      "nvidia_smi": smi}), flush=True)
+    if vertices != min(result["map_points"], 200_000):
+        fail(f"observability: the PLY has {vertices} vertices for {result['map_points']} "
+             "map points")
+    return pline["launches"]
+
+
 OFFLINE_REPEATABLE = {"scale": phase_scale, "scaling_tools": phase_scaling_tools}
 
 
@@ -3336,7 +3546,7 @@ def run_phases(knn, names, smi):
     """Only the named phases (``icl``, ``compact``, ``train_depth``, ``oft``,
     ``scale``, ``scaling_tools``, ``recover``, ``demo``, ``batched``,
     ``sharded``, ``sequence``, ``optimizers``, ``batched_program``,
-    ``small:CONFIG``),
+    ``observability``, ``small:CONFIG``),
     each checked as in the full run; no kernels line and no result line."""
     stats = {}
     offline = {"train_depth": lambda: phase_train_depth(knn, stats, smi),
@@ -3356,6 +3566,8 @@ def run_phases(knn, names, smi):
             phase_batched_program(knn, stats, smi)
         elif name == "optimizers":
             phase_optimizers(smi)
+        elif name == "observability":
+            phase_observability(knn, smi)
         elif name == "icl":
             phase_icl(knn, stats, smi)
         elif name == "compact":
@@ -3468,7 +3680,9 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
     phase_optimizers(smi)
     sequence_launches = phase_sequence(knn, stats, smi)
     batched_program_launches = phase_batched_program(knn, stats, smi)
-    # 14. small input, card vs CPU
+    # 14. the online runner's observability outputs through the program
+    observability_launches = phase_observability(knn, smi)
+    # 15. small input, card vs CPU
     for config in SMALL_CONFIGS:
         phase_small(config)
 
@@ -3501,6 +3715,7 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
                         "sharded_launches": sharded_launches[key],
                         "sequence_launches": sequence_launches[key],
                         "batched_program_launches": batched_program_launches[key],
+                        "observability_launches": observability_launches[key],
                         "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                         "kernel_ms": st.get("kernel_ms"),
                         "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),

@@ -6,8 +6,11 @@ refinement (PFT), PointFusion into the global map, and the summary the JAX
 app prints, with whether the run took the whole-sequence program, the CUDA
 graphs it captured and their capture time (``DEBUG.print_metrics: false``
 takes the program where the config allows it; the per-step prints of
-``print_metrics: true`` take the per-keyframe loop). Runs on CUDA unless
-``SETTINGS.device`` is ``cpu``.
+``print_metrics: true`` take the per-keyframe loop). With
+``VIZ.plot_final_step`` the final map is written as
+``{DEBUG.plot_path or "."}/{SETTINGS.name}_map.ply`` (at most 200,000
+points), as the JAX app writes it. Runs on CUDA unless ``SETTINGS.device``
+is ``cpu``.
 ``--set SECTION.key=value`` overrides a setting, for example the ICL-NUIM
 configuration on the repository's 10-frame sequence with a checkpoint
 directory of one's own::
@@ -20,8 +23,11 @@ directory of one's own::
 
 from __future__ import annotations
 
+import os
+
 from e2eslam_tpu_torch.config import load_config
 from e2eslam_tpu_torch.engine.adaptation import OnlineAdaptation
+from e2eslam_tpu_torch.viz.pointcloud_export import export_ply
 
 
 def main(argv=None):
@@ -36,6 +42,9 @@ def main(argv=None):
     print(f"refinement steps/sec (adapt+fuse): {result['steps_per_sec']:.3f}")
     print(f"sequence_program: {result['sequence_program']}  graphs: {result['graphs']}  "
           f"capture_s: {result['capture_s']:.3f}")
+    if config.VIZ.get("plot_final_step"):
+        out = os.path.join(config.DEBUG.get("plot_path") or ".", f"{config.SETTINGS.name}_map.ply")
+        print("map exported to", export_ply(result["map"], out, max_points=200000))
     return result
 
 

@@ -401,7 +401,13 @@ def _profiled(config, profile_frames, loop):
     synchronisations per keyframe event."""
     # At most the workload's own frames (the icl sequence holds 10).
     frames = min(profile_frames, int(config().DEMO.sequence_length))
-    return profiled_run(lambda: _run(config(frames), loop), lambda r: r["keyframes"])
+
+    def run():
+        cfg = config(frames)
+        cfg.VIZ.profile_dir = None  # this profiler traces the run: two do not nest
+        return _run(cfg, loop)
+
+    return profiled_run(run, lambda r: r["keyframes"])
 
 
 def profile_batched(cfg, sequences, dispatch):

@@ -19,11 +19,24 @@ adapted network is saved at the end (``MODEL.save_checkpoint``). With
 ``MODEL.compact_period`` the live map is compacted after every
 ``compact_period``-th fused keyframe (``MODEL.compact_mode``: voxel or
 projective); ``MODEL.compact_voxel`` compacts the final map.
+
+What the JAX runner writes, the runner writes, on either path
+(``adaptation.py:172-181``, :454-478): with ``SETTINGS.log_path`` a JSONL
+record of each keyframe's last-step scalars and, with
+``VIZ.log_gradients``, its per-parameter gradient norms
+(``viz/logging.py::ScalarLogger``); with ``DEBUG.plot`` and
+``DEBUG.plot_path`` each keyframe's debug images as PNGs; with
+``VIZ.profile_dir`` a ``torch.profiler`` trace of the whole run (the
+program's capture and replays included), its path in the result's
+``profile_trace``. The whole-sequence program carries the gradient norms
+and the debug images in its buffers, as the JAX program stacks them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -37,6 +50,8 @@ from e2eslam_tpu_torch.engine.refine import (
     PairBatch,
     RefinementEngine,
     compact_bucket,
+    host_metrics,
+    metrics_from_rows,
     validate_config,
 )
 from e2eslam_tpu_torch.ops.spatial_sort import SortedMap, regather_sorted
@@ -47,6 +62,8 @@ from e2eslam_tpu_torch.losses.trajectory import (
 from e2eslam_tpu_torch.models.convert import load_depth_weights
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
 from e2eslam_tpu_torch.slam.compact import compact_map
+from e2eslam_tpu_torch.viz.images import dump_debug_images
+from e2eslam_tpu_torch.viz.logging import ScalarLogger
 
 
 def sequence_program_blocker(config, *, verbose: bool, use_sequence_program: bool = True):
@@ -55,10 +72,8 @@ def sequence_program_blocker(config, *, verbose: bool, use_sequence_program: boo
     runs. The JAX runner's conditions (``adaptation.py:191-195``): the
     program is on, the run is not verbose (its per-step prints read every
     step), 2-frame windows, an association other than the voxel hash (which
-    the loop rebuilds on the host) and at least one refinement step. Then
-    the observability outputs (``VIZ.log_gradients``, ``VIZ.tensorboard``,
-    ``DEBUG.plot``: per-step dicts the program does not stack), taken by
-    the loop on every device so that CPU and card agree."""
+    the loop rebuilds on the host) and at least one refinement step. The
+    observability outputs do not enter: the program carries them."""
     L, O = config.LOSS, config.OPTIMIZATION
     checks = (
         (not use_sequence_program, "use_sequence_program is off"),
@@ -66,8 +81,6 @@ def sequence_program_blocker(config, *, verbose: bool, use_sequence_program: boo
         (int(config.DEMO.get("sequence_length_refinement") or 2) != 2, "F != 2 windows"),
         (str(L.get("knn_impl", "brute")) == "voxel", "LOSS.knn_impl: voxel"),
         (int(O.refinement_steps) <= 0, "no refinement steps"),
-        (bool(config.VIZ.get("log_gradients") or config.VIZ.get("tensorboard")
-              or config.DEBUG.get("plot")), "observability outputs"),
     )
     return next((why for blocked, why in checks if blocked), None)
 
@@ -119,15 +132,17 @@ class KeyframeViews:
         self.sorted_at: List[int] = []
         self.compactions: List[Dict] = []
 
-    def map_index(self, k: int, global_map):
-        """Keyframe ``k``'s index over ``global_map``. Returns (index,
-        whether the sorted view's permutation is the previous keyframe's,
-        so that its final KNN indices may seed this one)."""
+    def map_index(self, k: int, global_map, announce: bool = False):
+        """Keyframe ``k``'s index over ``global_map``; with ``announce`` the
+        sorted view's bucket choice is printed as the JAX loop prints it
+        under ``E2ESLAM_DEBUG_BUCKET`` (adaptation.py:304-307). Returns
+        (index, whether the sorted view's permutation is the previous
+        keyframe's, so that its final KNN indices may seed this one)."""
         engine = self.engine
         if not self._bucketed_sort:
             return engine.build_map_index(global_map), False
         period = int(self.config.LOSS.get("knn_sort_period", 1) or 1)
-        self._bucket_rows = self._bucket(global_map.count, k == 0, self._bucket_rows)
+        self._bucket_rows = self._bucket(global_map.count, k, self._bucket_rows, announce)
         bucket = self._bucket_rows
         if self._sort_cache_stale(period, bucket, global_map.count):
             index = engine.build_map_index(global_map, bucket)
@@ -165,18 +180,23 @@ class KeyframeViews:
                                  "after": global_map.count})
         return global_map, True
 
-    def _bucket(self, count: int, first: bool, last: int) -> int:
-        """Rows of the map view the keyframe's KNN and fusion run on: an
+    def _bucket(self, count: int, k: int, last: int, announce: bool) -> int:
+        """Rows of the map view keyframe ``k``'s KNN and fusion run on: an
         upper bound on the post-fusion count, rounded up to
         ``LOSS.knn_bucket_quantum`` (1<<20), never shrinking within a run.
-        The bound matches the JAX host loop with a ready count fetch: a
-        keyframe appends at most H*W rows (the first, which also fuses its
-        prev frame, 2*H*W)."""
+        The bound matches the JAX host loop with a ready count fetch of the
+        previous keyframe (``known``, ``lag`` 1; none before the first,
+        lag 2): a keyframe appends at most H*W rows."""
         cfg = self.config
         hw = int(cfg.DATA.height) * int(cfg.DATA.width)
-        ub = 3 * hw if first else count + 2 * hw
+        known, lag = (0, 2) if k == 0 else (int(count), 1)
+        ub = known + (lag + 1) * hw
         q = int(cfg.LOSS.get("knn_bucket_quantum", 0) or (1 << 20))
-        return max(min(-(-ub // q) * q, self.capacity), last)
+        bucket = max(min(-(-ub // q) * q, self.capacity), last)
+        if announce:
+            print(f"[bucket] kf={k + 1} known={known} lag={lag} ub={ub} bucket={bucket}",
+                  flush=True)
+        return bucket
 
     def _sort_cache_stale(self, period: int, bucket: int, known: int) -> bool:
         """Whether the cached Morton permutation must be rebuilt
@@ -216,6 +236,10 @@ class OnlineAdaptation(KeyframeViews):
     ``use_sequence_program`` (default True, as in the JAX runner): whether a
     run whose config allows it (``sequence_program_blocker``) takes the
     whole-sequence program.
+
+    ``run`` writes the JAX runner's observability outputs (the module's
+    docstring) and returns the path of a ``VIZ.profile_dir`` trace as
+    ``profile_trace``.
     """
 
     use_sequence_program = True
@@ -270,33 +294,43 @@ class OnlineAdaptation(KeyframeViews):
         self._views_start()
         program = sequence_program_blocker(
             cfg, verbose=verbose, use_sequence_program=self.use_sequence_program) is None
-        self._sync()
-        t_start = time.perf_counter()
-        if program:
-            global_map, keyframes, metrics, est, seeded_at, info = self._run_program(
-                global_map, colors, gt_depths, K, poses, schedule)
-        else:
-            global_map, keyframes, metrics, est, seeded_at = self._run_loop(
-                global_map, colors, gt_depths, K, poses, schedule, verbose)
-            info = {"graphs": 0, "capture_s": 0.0}
-        self._sync()
-        elapsed = time.perf_counter() - t_start
+        # The JAX runner starts its trace, then opens its log, then its clock
+        # (adaptation.py:174-182).
+        with run_trace(cfg.VIZ.get("profile_dir"), dev, str(cfg.SETTINGS.name)) as trace:
+            logger = (ScalarLogger(cfg.SETTINGS.log_path, cfg.SETTINGS.name)
+                      if cfg.SETTINGS.get("log_path") else None)
+            self._sync()
+            t_start = time.perf_counter()
+            if program:
+                global_map, keyframes, metrics, est, seeded_at, info = self._run_program(
+                    global_map, colors, gt_depths, K, poses, schedule)
+            else:
+                global_map, keyframes, metrics, est, seeded_at = self._run_loop(
+                    global_map, colors, gt_depths, K, poses, schedule, verbose)
+                info = {"graphs": 0, "capture_s": 0.0}
+            self._sync()
+            elapsed = time.perf_counter() - t_start
+        info["profile_trace"] = trace[0] if trace else None
         return self._summary(global_map, keyframes, metrics, est, seeded_at, elapsed, poses_np,
-                             intrinsics, verbose, program, info)
+                             intrinsics, verbose, program, info, logger)
 
     def _run_program(self, global_map, colors, gt_depths, K, poses, schedule):
         """The run through ``RefinementEngine.process_sequence``: one read of
-        the stacked metrics, poses, compaction counts and map count at the
-        end."""
+        the stacked metrics (the scalars as one table, each gradient-norm or
+        image buffer as itself), poses, compaction counts and map count at
+        the end; each keyframe's metrics in the loop's nested shape."""
         engine = self.engine
         prev_idx = [p for p, _ in schedule]
         keyframes = [c for _, c in schedule]
         global_map, stacked, est_t, info = engine.process_sequence(
             global_map, colors, gt_depths, K, poses, prev_idx, keyframes)
-        names = sorted(stacked)
-        table = (torch.stack([stacked[n].double() for n in names]).cpu().numpy() if names
-                 else np.zeros((0, len(keyframes))))
-        metrics = [{n: float(table[i, e]) for i, n in enumerate(names)}
+        names = sorted(n for n, t in stacked.items() if t.dim() == 1)
+        rows = {n: stacked[n].cpu().numpy() for n in stacked if stacked[n].dim() > 1}
+        if names:
+            table = torch.stack([stacked[n].double() for n in names]).cpu().numpy()
+            rows.update(zip(names, table))
+        norm_names = [n for n, _ in engine.model.named_parameters()]
+        metrics = [metrics_from_rows({n: r[e] for n, r in rows.items()}, norm_names)
                    for e in range(len(keyframes))]
         kf = global_map.kf_counter
         global_map = dataclasses.replace(global_map, count=int(global_map.count),
@@ -322,12 +356,16 @@ class OnlineAdaptation(KeyframeViews):
         kf_hist = [0]  # processed keyframes (frame 0: the first prev)
         last_kc = None
         seeded_at = []
+        # The JAX loop prints its bucket lines on its non-verbose 2-frame
+        # path, the one that buckets (adaptation.py:262-307).
+        announce = (bool(os.environ.get("E2ESLAM_DEBUG_BUCKET")) and not verbose
+                    and self.F_ref == 2)
         for k, (prev, frame) in enumerate(schedule):
             window = window_frames(kf_hist, frame, self.F_ref)
             pair = self._batch(colors, gt_depths, K, poses, window)
             fuse_batch = None if window == [prev, frame] else self._batch(
                 colors, gt_depths, K, poses, [prev, frame])
-            map_index, perm_stable = self.map_index(k, global_map)
+            map_index, perm_stable = self.map_index(k, global_map, announce)
             # Cross-keyframe seeds: the previous keyframe's final indices are
             # positions in the sorted view, valid while its permutation is.
             seed = last_kc if perm_stable else None
@@ -349,16 +387,28 @@ class OnlineAdaptation(KeyframeViews):
             keyframes.append(frame)
             per_pair.append(steps[-1] if steps else None)
             est_poses.append(est_pose)
-        metrics = [None if m is None else {k: float(v) for k, v in m.items()}
-                   for m in per_pair]
+        metrics = [None if m is None else host_metrics(m) for m in per_pair]
         est = (torch.stack(est_poses).cpu().numpy() if est_poses
                else np.zeros((0, 4, 4), np.float32))
         return global_map, keyframes, metrics, est, seeded_at
 
     def _summary(self, global_map, keyframes, metrics, est, seeded_at, elapsed, poses_np,
-                 intrinsics, verbose, program, info) -> Dict:
+                 intrinsics, verbose, program, info, logger) -> Dict:
         cfg, engine = self.config, self.engine
         total_steps = engine.refinement_steps * len(keyframes)
+        # The JAX runner's end of run (adaptation.py:456-478): keyframe i's
+        # scalars at step i, then its gradient norms; its debug images.
+        if logger is not None:
+            for i, m in enumerate(metrics):
+                if m is not None:
+                    logger.log(i, {k: v for k, v in m.items() if not isinstance(v, dict)})
+                    if m.get("grad_norms"):
+                        logger.log(i, m["grad_norms"], prefix="grad_norm/")
+            logger.close()
+        if cfg.DEBUG.get("plot") and cfg.DEBUG.get("plot_path"):
+            for i, m in enumerate(metrics):
+                if m is not None and "debug_images" in m:
+                    dump_debug_images(m["debug_images"], cfg.DEBUG.plot_path, f"kf{i:03d}")
         if cfg.MODEL.get("save_checkpoint"):
             save_checkpoint(cfg.MODEL.save_checkpoint, engine.model, engine.optimizer,
                             meta={"keyframes": len(keyframes), "refine_steps": total_steps})
@@ -401,6 +451,8 @@ class OnlineAdaptation(KeyframeViews):
             "sequence_program": program,
             "graphs": info["graphs"],
             "capture_s": info["capture_s"],
+            # VIZ.profile_dir's trace file (None without one).
+            "profile_trace": info["profile_trace"],
         }
         if compacted is not None:
             result["map_points_compacted"] = compacted
@@ -418,3 +470,31 @@ class OnlineAdaptation(KeyframeViews):
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+@contextlib.contextmanager
+def run_trace(profile_dir: Optional[str], device: torch.device, name: str):
+    """``VIZ.profile_dir``: the block under ``torch.profiler`` (the host's
+    operators, and the card's kernels on CUDA), whose trace
+    ``torch.profiler.tensorboard_trace_handler`` writes into ``profile_dir``
+    as the block ends, the counterpart of the JAX runner's
+    ``jax.profiler`` trace. Yields a list that then holds the trace file's
+    path (empty without ``profile_dir``)."""
+    written: List[str] = []
+    if not profile_dir:
+        yield written
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    handler = torch.profiler.tensorboard_trace_handler(profile_dir, worker_name=name)
+
+    def ready(prof):
+        os.makedirs(profile_dir, exist_ok=True)
+        before = set(os.listdir(profile_dir))
+        handler(prof)
+        written.extend(os.path.join(profile_dir, f)
+                       for f in sorted(set(os.listdir(profile_dir)) - before))
+
+    with torch.profiler.profile(activities=activities, on_trace_ready=ready):
+        yield written

@@ -46,7 +46,10 @@ replays, fed their frame indices from pinned host memory; a periodic
 compaction pass (``slam/compact.py``, fixed-shape) is launched between
 replays over a bucket of rows chosen from a host bound on the count, with
 no read. Every KNN launch inside the graph reads its valid counts on the
-device (``ops/knn.py``).
+device (``ops/knn.py``). With the observability outputs on
+(``VIZ.log_gradients``, ``DEBUG.plot``) each event's gradient norms and
+debug images go into the program's buffers beside its scalars
+(``event_rows``), as the JAX program stacks them.
 
 Beside the PFT step, the offline apps' modes (``refine.py:1410-1537``):
 output fine-tuning (``oft_step``, ``oft_window``: Adam on the depth maps
@@ -992,10 +995,12 @@ class RefinementEngine:
         poses), a fresh Morton sort of the whole buffer, R PFT steps seeded
         by the previous event's final KNN cache, then fusion. Everything it
         keeps is written in place: the map ``ms`` (its count and index
-        images), the cache ``carry["kc"]``, the last step's metrics into row
-        ``ev_i`` of ``out``'s ``[E]`` buffers (allocated on the first event)
-        and the estimated pose into ``est[ev_i]``. So a CUDA graph of it
-        replays against the same tensors."""
+        images), the cache ``carry["kc"]``, the last step's metrics
+        (``event_rows``: with the observability outputs on, the gradient
+        norms and the debug images too) into row ``ev_i`` of ``out``'s
+        ``[E, ...]`` buffers (allocated on the first event) and the
+        estimated pose into ``est[ev_i]``. So a CUDA graph of it replays
+        against the same tensors."""
         colors, gt_depths, poses = seq
         pair = PairBatch(colors=colors.index_select(0, pair_i),
                          gt_depths=gt_depths.index_select(0, pair_i), intrinsics=K,
@@ -1005,10 +1010,10 @@ class RefinementEngine:
         map_index = self.build_map_index(ms)
         new, steps, est_pose, kc = self.process_pair(pair, ms, map_index, fuse_prev=fuse_prev,
                                                      knn_init0=carry.get("kc"))
-        for name, value in steps[-1].items():
+        for name, value in event_rows(steps[-1]).items():
             if name not in out:
-                out[name] = torch.zeros(est.shape[0], dtype=value.dtype, device=value.device)
-            out[name].index_copy_(0, ev_i, value.reshape(1))
+                out[name] = value.new_zeros((est.shape[0],) + value.shape)
+            out[name].index_copy_(0, ev_i, value[None])
         est.index_copy_(0, ev_i, est_pose[None].to(est.dtype))
         store_map(ms, new)
         if kc is not None:
@@ -1064,8 +1069,9 @@ class RefinementEngine:
         the bucket that holds a host bound on the count. ``map_state`` is
         updated in place (its count becomes a device tensor).
 
-        Returns (map, metrics ``{name: [E]}`` of each event's last step,
-        estimated poses ``[E, 4, 4]``, info: ``graphs`` captured,
+        Returns (map, metrics ``{name: [E, ...]}`` of each event's last
+        step (``event_rows``), estimated poses ``[E, 4, 4]``, info:
+        ``graphs`` captured,
         ``capture_s``, ``compactions`` ``[{"keyframe", "counts"}]``, each
         pass's counts before and after as int64 ``[2]``), all on the device
         but the info's numbers."""
@@ -1143,6 +1149,54 @@ class RefinementEngine:
         info["capture_s"] += time.perf_counter() - t0
         info["graphs"] += 1
         return graph
+
+
+def event_rows(metrics: Dict) -> Dict[str, Tensor]:
+    """A step's metrics as the rows the programs write for an event, each
+    a tensor on the device: each scalar 0-d, ``grad_norms`` stacked into
+    one ``[P]`` row in the network's ``named_parameters`` order, each
+    debug image (``[H, W, ...]``) under ``debug_images/<name>``. The JAX
+    programs stack the whole metrics tree (refine.py:1381-1403)."""
+    rows = {}
+    for name, value in metrics.items():
+        if name == "grad_norms":
+            rows[name] = torch.stack(list(value.values()))
+        elif isinstance(value, dict):
+            rows.update({f"{name}/{k}": v for k, v in value.items()})
+        else:
+            rows[name] = value.reshape(())
+    return rows
+
+
+def metrics_from_rows(rows: Dict, norm_names: List[str]) -> Dict:
+    """One event's metrics from its rows read to the host (``rows``: name
+    -> a numpy array, as ``event_rows`` names them), in the loop's nested
+    shape (``host_metrics``)."""
+    m: Dict = {}
+    for key, value in rows.items():
+        if key == "grad_norms":
+            m[key] = {n: float(v) for n, v in zip(norm_names, value)}
+        elif "/" in key:
+            head, name = key.split("/", 1)
+            m.setdefault(head, {})[name] = value
+        else:
+            m[key] = float(value)
+    return m
+
+
+def host_metrics(metrics: Dict) -> Dict:
+    """A step's metrics on the host: each scalar a float, ``grad_norms``
+    ``{parameter name: float}`` (one read for all), each debug image a
+    float32 numpy array."""
+    out = {}
+    for k, v in metrics.items():
+        if k == "grad_norms":
+            out[k] = dict(zip(v, torch.stack(list(v.values())).tolist()))
+        elif isinstance(v, dict):
+            out[k] = {n: t.detach().float().cpu().numpy() for n, t in v.items()}
+        else:
+            out[k] = float(v)
+    return out
 
 
 @contextlib.contextmanager

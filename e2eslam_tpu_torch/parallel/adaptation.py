@@ -17,8 +17,10 @@ whole sequences on it.
     compaction of every sequence's map (``adaptation.py:100-126``,
     ``:197-204``).
   * Results per sequence: its keyframes, each keyframe's last-step metrics
-    and abs_rel, the mean abs_rel over its own keyframes, the estimated
-    keyframe poses, ATE and RPE.
+    (with ``VIZ.log_gradients`` its gradient norms, with ``DEBUG.plot`` its
+    debug images, as the JAX runners' vmapped step gives them; the nested
+    shape of ``OnlineAdaptation``'s) and abs_rel, the mean abs_rel over its
+    own keyframes, the estimated keyframe poses, ATE and RPE.
 
 Two dispatches, as the JAX runner's (``adaptation.py:326-370``):
 
@@ -37,8 +39,9 @@ Two dispatches, as the JAX runner's (``adaptation.py:326-370``):
     computing and its commits masked on the device. Its inputs (the pairs
     ``[n, 2]``, the active mask ``[n]``, the event's index) are copied from
     pinned memory into fixed device tensors, and it writes each event's
-    last-step metrics into ``[n, E]`` buffers and the estimated poses into
-    ``[n, E, 4, 4]``, read once after the last event. On a CUDA card events
+    last-step metrics into ``[n, E, ...]`` buffers (the gradient norms and
+    debug images too) and the estimated poses into ``[n, E, 4, 4]``, read
+    once after the last event. On a CUDA card events
     0 and 1 run eagerly on a side stream, one warm event is captured as a
     CUDA graph and events 2..E-1 replay it (as
     ``RefinementEngine.process_sequence`` does for one sequence); on the
@@ -48,9 +51,8 @@ Two dispatches, as the JAX runner's (``adaptation.py:326-370``):
     ranks captures one graph per rank; no collective runs inside it.
   * ``auto`` takes ``event`` at 8 sequences or more (the JAX rule), and
     wherever ``engine/adaptation.py::sequence_program_blocker`` stops the
-    program (3-frame windows, the voxel association, no refinement step,
-    the observability outputs), decided from the config before the run.
-    A blocked ``whole`` raises.
+    program (3-frame windows, the voxel association, no refinement step),
+    decided from the config before the run. A blocked ``whole`` raises.
 
 Each sequence's window is assembled by one row gather over the stacked
 frames (``ops/batched_rows.py::FLAT_ROW_OPS``, the JAX
@@ -75,7 +77,14 @@ from e2eslam_tpu_torch.engine.adaptation import (
     window_frames,
 )
 from e2eslam_tpu_torch.engine.optim import DeviceSchedule
-from e2eslam_tpu_torch.engine.refine import PairBatch, _sync_debug, store_map
+from e2eslam_tpu_torch.engine.refine import (
+    PairBatch,
+    _sync_debug,
+    event_rows,
+    host_metrics,
+    metrics_from_rows,
+    store_map,
+)
 from e2eslam_tpu_torch.losses.trajectory import absolute_trajectory_error, relative_pose_error
 from e2eslam_tpu_torch.ops.batched_rows import FLAT_ROW_OPS
 from e2eslam_tpu_torch.parallel.mesh import Mesh, ParallelRefinement, ParallelState, local_rows
@@ -281,8 +290,7 @@ class ParallelAdaptation:
                         maps[j], done = views[j].maybe_compact(e, frame, maps[j], pose, K[j])
                         if done:
                             last_kc[j] = None
-        metrics = [[None if m is None else {k: float(v) for k, v in m.items()} for m in pp]
-                   for pp in per_pair]
+        metrics = [[None if m is None else host_metrics(m) for m in pp] for pp in per_pair]
         est = [torch.stack(p).cpu().numpy() if p else np.zeros((0, 4, 4), np.float32)
                for p in est_poses]
         return maps, keyframes, metrics, est, [v.compactions for v in views]
@@ -357,9 +365,10 @@ class ParallelAdaptation:
             if par._schedule is not None:
                 par._schedule.exit()
                 par._schedule = None
-        names = sorted(out)
-        table = (torch.stack([out[k].double() for k in names]).cpu().numpy() if names
-                 else np.zeros((0, n, E)))
+        names = sorted(k for k, t in out.items() if t.dim() == 2)
+        rows = {k: out[k].cpu().numpy() for k in out if out[k].dim() > 2}
+        if names:
+            rows.update(zip(names, torch.stack([out[k].double() for k in names]).cpu().numpy()))
         est_np = est.cpu().numpy()
         compactions: List[List[Dict]] = [[] for _ in range(n)]
         if passes:
@@ -368,7 +377,8 @@ class ParallelAdaptation:
                 compactions[j].append({"keyframe": e, "frame": events[e][j][1],
                                        "before": before, "after": after})
         keyframes = [[c for _, c in s] for s in schedules]
-        metrics = [[{k: float(table[i, j, e]) for i, k in enumerate(names)}
+        norm_names = list(state.params)
+        metrics = [[metrics_from_rows({k: r[j, e] for k, r in rows.items()}, norm_names)
                     for e in range(counts[j])] for j in range(n)]
         maps = [dataclasses.replace(m, count=int(m.count),
                                     kf_counter=None if m.kf_counter is None
@@ -388,9 +398,9 @@ class ParallelAdaptation:
         row gather, its whole map buffer sorted, R PFT steps seeded by its
         previous event's final KNN cache, then fusion, committed where the
         active mask is set. Everything it keeps is written in place (the
-        maps, ``carry["kc"]``, row ``ev_i`` of ``out``'s ``[n, E]`` buffers
-        and of ``est``), so a CUDA graph of it replays against the same
-        tensors."""
+        maps, ``carry["kc"]``, row ``ev_i`` of ``out``'s ``[n, E, ...]``
+        buffers (``event_rows``) and of ``est``), so a CUDA graph of it
+        replays against the same tensors."""
         par = self.par
         pi, act, ev_i = ins
         colors, gt_depths, K, poses = seq
@@ -407,10 +417,11 @@ class ParallelAdaptation:
             if warm:
                 kc = caches
         new, est_e = par.fuse_pair(state, pairs, maps, fuse_prev=fuse_prev, active=act)
-        for name in metrics[0]:
-            value = torch.stack([m[name].reshape(()) for m in metrics])
+        rows = [event_rows(m) for m in metrics]
+        for name in rows[0]:
+            value = torch.stack([r[name] for r in rows])
             if name not in out:
-                out[name] = torch.zeros(est.shape[:2], dtype=value.dtype, device=value.device)
+                out[name] = value.new_zeros(est.shape[:2] + value.shape[1:])
             out[name].index_copy_(1, ev_i, value[:, None])
         est.index_copy_(1, ev_i, torch.stack(est_e)[:, None].to(est.dtype))
         for m, m_new in zip(maps, new):

@@ -252,7 +252,15 @@ class ParallelRefinement:
         padded window's NaN cannot reach the sum). An inactive sequence's
         parameters and optimizer state are kept as they were. Returns
         (metrics, KNN caches), one entry per local sequence (None where a
-        host flag is off)."""
+        host flag is off). Each sequence's metrics hold what the solo
+        step's hold (``RefinementEngine.refine_step``), as the JAX runners'
+        vmapped step gives each its own: with ``VIZ.log_gradients`` or
+        ``VIZ.tensorboard`` its ``grad_norms``, the norm of its row of each
+        stacked gradient (0 for the frozen parameters and the unused
+        heads), with ``DEBUG.plot`` its ``debug_images``."""
+        cfg = self.config
+        obs_grads = bool(cfg.VIZ.get("log_gradients") or cfg.VIZ.get("tensorboard"))
+        obs_images = bool(cfg.DEBUG.get("plot"))
         n = self.n_local
         flags, mask = _flags(active, n, self.device)
         map_indices = map_indices or [None] * n
@@ -268,20 +276,27 @@ class ParallelRefinement:
                 continue
             pair = pair_of(pairs, i)
             disp, depth = engine.depths_from_net(out[i], F)
-            loss, aux, depth, _ = engine.step_loss(pair, disp, depth, maps[i], map_indices[i],
-                                                   knn_init[i], thread_knn, step)
+            loss, aux, depth, outputs = engine.step_loss(pair, disp, depth, maps[i],
+                                                         map_indices[i], knn_init[i],
+                                                         thread_knn, step)
             term = torch.where(active[i], loss, torch.zeros_like(loss)) if on_device else loss
             total = term if total is None else total + term
-            held[i] = (pair, depth, loss, aux)
+            held[i] = (pair, depth, loss, aux, outputs)
         if total is not None:
             total.backward()
+        norms = _row_norms(state.params) if obs_grads else None
         self._commit(state, mask)
         metrics, caches = [None] * n, [None] * n
         for i, h in enumerate(held):
             if h is not None:
-                pair, depth, loss, aux = h
+                pair, depth, loss, aux, outputs = h
+                engine = self.engines[i]
                 caches[i] = aux.pop("_knn_idx", None)
-                metrics[i] = self.engines[i].step_metrics(pair, depth, loss, aux)
+                metrics[i] = engine.step_metrics(pair, depth, loss, aux)
+                if obs_images:
+                    metrics[i]["debug_images"] = engine._debug_images(pair, depth, outputs)
+                if norms is not None:
+                    metrics[i]["grad_norms"] = dict(zip(state.params, norms[i]))
         return metrics, caches
 
     def _commit(self, state: ParallelState, mask: Optional[Tensor]) -> None:
@@ -350,6 +365,17 @@ def commit_rows(saved: list, mask: Optional[Tensor]) -> None:
     ``[n_local]`` axis, in place."""
     for t, old in saved:
         torch.where(mask.reshape((-1,) + (1,) * (t.dim() - 1)), t, old, out=t)
+
+
+def _row_norms(params: Dict[str, Tensor]) -> List[List[Tensor]]:
+    """Each local sequence's gradient norm of each stacked parameter
+    ``[n_local, ...]`` (its row of ``.grad``; 0 where there is none), one
+    ``torch._foreach_norm`` over the rows, as the solo step takes its norms.
+    Returns ``[n_local][parameter]`` 0-d tensors, in ``params``' order."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.values()]
+    n = grads[0].shape[0]
+    norms = torch._foreach_norm([g[i].float() for i in range(n) for g in grads])
+    return [norms[i * len(grads):(i + 1) * len(grads)] for i in range(n)]
 
 
 def _flags(active, n: int, device):

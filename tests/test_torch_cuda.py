@@ -807,21 +807,27 @@ def test_captured_event_equals_the_eager_event(card, over):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("over", [{}, {"MODEL.compact_period": 2},
-                                  {"MODEL.compact_period": 2, "MODEL.compact_mode": "projective"}],
-                         ids=["plain", "compact", "compact_projective"])
+                                  {"MODEL.compact_period": 2, "MODEL.compact_mode": "projective"},
+                                  {"VIZ.log_gradients": True, "DEBUG.plot": True,
+                                   "DEBUG.plot_path": None}],
+                         ids=["plain", "compact", "compact_projective", "observed"])
 def test_replays_make_no_host_synchronisation(card, over):
     """The replay loop (each event's pinned index copies and its graph
     replay) and the compaction passes between replays raise nothing under
     set_sync_debug_mode("error"); the run reads the card only after its
-    last event."""
+    last event. Observed, every event carries its gradient norms and
+    debug images."""
     runner = _sequence_runner(**over)
     runner.engine.replay_sync_mode = "error"
     result = runner.run(verbose=False)
     assert result["sequence_program"] and result["graphs"] == 1
     assert len(result["keyframes"]) >= 4
     assert all(np.isfinite(m["abs_rel"]) for m in result["metrics"])
-    if over:
+    if "MODEL.compact_period" in over:
         assert [c["keyframe"] for c in result["compactions"]] == [1, 3]
+    if "DEBUG.plot" in over:
+        assert all(np.isfinite(list(m["grad_norms"].values())).all()
+                   and m["debug_images"]["depth"].shape == (64, 64) for m in result["metrics"])
 
 
 

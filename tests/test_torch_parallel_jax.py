@@ -18,6 +18,12 @@ streams, which cannot match, do not enter.
     whole-run program) against the port's program (``dispatch="whole"``,
     every event eager on the CPU, the code the card captures) and against
     the port's per-event loop;
+  * the same with the observability outputs (``VIZ.log_gradients``,
+    ``DEBUG.plot``): each sequence's gradient norms and debug images at its
+    first two keyframes, through both of the port's dispatches, against
+    the JAX vmapped step's (read from the JAX runner's per-event calls),
+    held as tests/test_torch_sequence.py holds the single-sequence
+    program's (``check_observed``);
   * the index path with voxel compaction: tests/test_torch_parallel_compact.py.
 """
 
@@ -26,6 +32,7 @@ import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads
 import jax
 import numpy as np
 import pytest
+from test_torch_sequence import check_observed
 
 from e2eslam_tpu.config import default_config_path as jax_default_path
 from e2eslam_tpu.config import load_yaml as jax_load_yaml
@@ -43,6 +50,7 @@ H = W = 64
 
 BRUTE = {"DEMO.sequence_length": 5, "OPTIMIZATION.refinement_steps": 2,
          "LOSS.three3d_texture_gate": 600.0}
+OBSERVED = {**BRUTE, "VIZ.log_gradients": True, "DEBUG.plot": True, "DEBUG.plot_path": None}
 COMPACT = {"DEMO.sequence_length": 6, "OPTIMIZATION.refinement_steps": 1,
            "MODEL.fusion_impl": "index", "LOSS.knn_impl": "index",
            "MODEL.compact_period": 2, "MODEL.compact_live_voxel": 0.03}
@@ -82,7 +90,7 @@ def _compact_data(L):
                  .astype(np.float32) for k in range(4))
 
 
-def _both(over, data, dispatch, port_dispatch="auto"):
+def _both(over, data, dispatch, port_dispatch="auto", jax_hook=None):
     jcfg = _cfg(jax_load_yaml, jax_default_path(), over)
     L = int(jcfg.DEMO.sequence_length)
     cap = int(jcfg.MODEL.map_capacity)
@@ -92,6 +100,8 @@ def _both(over, data, dispatch, port_dispatch="auto"):
     state = jpar.init_state(params, stats, (2, H, W))
     weights = from_jax_params_stacked(*jax.tree_util.tree_map(
         np.asarray, jax.device_get((state.params, state.batch_stats))))
+    if jax_hook is not None:
+        jax_hook(jpar)
     want = jpar.run(state, data, threshold=0.01, dispatch=dispatch)
     tcfg = _cfg(load_yaml, default_config_path(), over)
     par = ParallelAdaptation(tcfg, make_depth_model(tcfg), map_capacity=cap, n_seq=2,
@@ -127,6 +137,35 @@ def test_brute_path_event_loop_matches_jax_event_dispatch():
     got, want = _both(BRUTE, _brute_data(5), "event", "event")
     assert got["dispatch"] == "event"
     _check(got, want)
+
+
+def _record_events(events):
+    """A hook that records each per-event call's last-step metrics (the
+    leaves ``[N, ...]``) of the JAX runner's event dispatch."""
+    def hook(jpar):
+        for name in ("_event0", "_event0_all", "_event", "_event_all"):
+            def recorded(*args, _fn=getattr(jpar, name)):
+                out = _fn(*args)
+                events.append(jax.device_get(out[2]))
+                return out
+
+            setattr(jpar, name, recorded)
+
+    return hook
+
+
+@pytest.mark.parametrize("port_dispatch", ["whole", "event"])
+def test_observability_outputs_match_jax(port_dispatch):
+    events = []
+    got, want = _both(OBSERVED, _brute_data(5), "event", port_dispatch, _record_events(events))
+    assert got["dispatch"] == port_dispatch
+    _check(got, want)
+    assert len(events) == want["num_events"]
+    assert got["per_sequence"][0]["num_keyframes"] >= 2
+    for i, g in enumerate(got["per_sequence"]):
+        for k, floor in ((0, 0.0), (1, 2e-5))[:g["num_keyframes"]]:
+            theirs = jax.tree_util.tree_map(lambda x, i=i: np.asarray(x[i]), events[k])
+            check_observed(g["metrics"][k], theirs, floor, f"sequence {i}, event {k}")
 
 
 @pytest.mark.parametrize("n_seq", [2])

@@ -8,8 +8,16 @@ weights carried over (``models/convert.py``), both runners through their
 programs (``OnlineAdaptation.run`` with ``verbose=False``): the default
 brute three3d, the flagship settings (index fusion and association) in
 float32, the brute path with compaction every 2nd event (voxel and
-projective passes), gradICP odometry, ``MODEL.active_window`` and the SGD
-optimizer. Tolerances, as
+projective passes), gradICP odometry, ``MODEL.active_window``, the SGD
+optimizer and the observability outputs (``VIZ.log_gradients``,
+``DEBUG.plot``: each event's gradient norms and debug images in the
+programs' buffers; on the same key set through
+``models/convert.py::torch_key``, event 0's norms within 2e-3 relative, as
+tests/test_torch_observability.py holds one step's, event 1's within 2e-3
+relative or 2e-5 of its largest norm, since the disparity head's bias
+norm is a sum that cancels (7.9e-5, 1.06e-6 apart: 1.3%, every other
+norm within 4.3e-4); the first two events' images within 1e-3).
+Tolerances, as
 for the runs of ``tests/test_torch_pft_runs.py``: equal keyframes; each
 of the first two events' last-step metrics within 1e-3 relative; the map
 count within max(4, count // 1000), the JAX
@@ -56,7 +64,7 @@ from e2eslam_tpu_torch.config import default_config_path, load_yaml
 from e2eslam_tpu_torch.engine import refine as refine_mod
 from e2eslam_tpu_torch.engine.adaptation import sequence_program_blocker
 from e2eslam_tpu_torch.losses import points as points_mod
-from e2eslam_tpu_torch.models.convert import load_jax_params
+from e2eslam_tpu_torch.models.convert import load_jax_params, torch_key
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
 
 H, W = 64, 64
@@ -79,7 +87,9 @@ RUNS = {"brute": {}, "index": FLAGSHIP_F32, "compact": {"MODEL.compact_period": 
         # at ten times BASE's rate: its events agree with JAX's to 1e-6. At
         # 1e-3 the first three agree to 4e-7 and a near-tie carried by the
         # larger steps moves the fifth by 0.15% and the map by 19 points.
-        "sgd": {"OPTIMIZATION.optimizer": "SGD", "OPTIMIZATION.learning_rate": 1e-4}}
+        "sgd": {"OPTIMIZATION.optimizer": "SGD", "OPTIMIZATION.learning_rate": 1e-4},
+        # The observability outputs, carried by both programs.
+        "observed": {"VIZ.log_gradients": True, "DEBUG.plot": True, "DEBUG.plot_path": None}}
 
 
 def _cfg(load, path, over):
@@ -182,6 +192,30 @@ def test_sequence_program_matches_jax(name, monkeypatch):
                     assert abs(mine - theirs) <= allowance, (c, before, after, seeds)
         if name == "gradicp":
             assert np.abs(got["est_poses"] - got["gt_kf_poses"]).max() > 1e-6
+        if name == "observed":
+            for k, floor in ((0, 0.0), (1, 2e-5)):
+                check_observed(got["metrics"][k], want["metrics"][k], floor,
+                               f"event {k}, seeds {seeds}")
+
+
+def check_observed(got, want, floor, where):
+    """One event's gradient norms (the port's parameter names against the
+    flax paths; within 2e-3 relative or ``floor`` of the largest norm) and
+    debug images (within 1e-3) against the JAX program's."""
+    norms = {torch_key(tuple(k.split("/")), "params"): float(v)
+             for k, v in want["grad_norms"].items()}
+    assert set(got["grad_norms"]) == set(norms), where
+    atol = floor * max(norms.values())
+    for key, w in norms.items():
+        if w == 0.0:
+            assert got["grad_norms"][key] == 0.0, (key, where)
+        else:
+            np.testing.assert_allclose(got["grad_norms"][key], w, rtol=2e-3, atol=atol,
+                                       err_msg=f"{key}, {where}")
+    assert set(got["debug_images"]) == set(want["debug_images"]), where
+    for key, w in want["debug_images"].items():
+        np.testing.assert_allclose(got["debug_images"][key], np.asarray(w), rtol=0, atol=1e-3,
+                                   err_msg=f"{key}, {where}")
 
 
 class _Taken(Exception):
@@ -190,11 +224,12 @@ class _Taken(Exception):
 
 def test_dispatch_rule_matches_jax(monkeypatch):
     """``sequence_program_blocker`` sends a run where the JAX runner sends
-    it: the program by default, with the active window and with SGD; the
-    per-keyframe loop when verbose, with 3-frame windows, the voxel
-    association, no refinement step or ``use_sequence_program`` off. The
-    JAX runner is stopped at its first dispatch (its engine's
-    ``process_sequence``, or the loop's first window)."""
+    it: the program by default, with the active window, with SGD and with
+    the observability outputs; the per-keyframe loop when verbose, with
+    3-frame windows, the voxel association, no refinement step or
+    ``use_sequence_program`` off. The JAX runner is stopped at its first
+    dispatch (its engine's ``process_sequence``, or the loop's first
+    window)."""
 
     def program(*a, **kw):
         raise _Taken("program")
@@ -208,7 +243,10 @@ def test_dispatch_rule_matches_jax(monkeypatch):
              "R0": ({"OPTIMIZATION.refinement_steps": 0}, False, True),
              "off": ({}, False, False),
              "window": ({"MODEL.active_window": 4096}, False, True),
-             "SGD": ({"OPTIMIZATION.optimizer": "SGD"}, False, True)}
+             "SGD": ({"OPTIMIZATION.optimizer": "SGD"}, False, True),
+             "log_gradients": ({"VIZ.log_gradients": True}, False, True),
+             "tensorboard": ({"VIZ.tensorboard": True}, False, True),
+             "plot": ({"DEBUG.plot": True}, False, True)}
     monkeypatch.setattr(jax_adaptation, "PairBatch", loop)
     for name, (over, verbose, use) in cases.items():
         jr = jax_adaptation.OnlineAdaptation(_cfg(jax_load_yaml, jax_default_path(), over))
@@ -219,11 +257,8 @@ def test_dispatch_rule_matches_jax(monkeypatch):
         why = sequence_program_blocker(_cfg(load_yaml, default_config_path(), over),
                                        verbose=verbose, use_sequence_program=use)
         assert (why is None) == (str(taken.value) == "program"), (name, why)
-    # The port's own rule: the observability outputs take the loop; the
-    # active window and every optimizer take the program.
-    for over in ({"VIZ.log_gradients": True}, {"VIZ.tensorboard": True}, {"DEBUG.plot": True}):
-        cfg = _cfg(load_yaml, default_config_path(), over)
-        assert sequence_program_blocker(cfg, verbose=False) is not None, over
+    # The active window, every optimizer, the chamfer and compaction take
+    # the program.
     for over in ({"OPTIMIZATION.optimizer": "RMSprop"}, {"OPTIMIZATION.optimizer": "Adagrad"},
                  {"OPTIMIZATION.optimizer": "SGD"}, {"MODEL.active_window": 4096},
                  {"LOSS.chamfer_distance": True}, {"MODEL.compact_period": 4}):
