@@ -16,16 +16,21 @@ events replay one CUDA graph), ``keyframe`` the per-keyframe loop
   1. a warm-up of 4 frames (cuDNN heuristics, allocator, kernel loading);
   2. the config as it stands (``DEMO.sequence_length`` frames), ``--runs``
      times, each timed with a synchronised host clock: steps/s, mean
-     abs_rel, map points, KNN launches (the spread of identical runs;
-     ``--deterministic``: with deterministic algorithms and cuDNN, whose
-     runs repeat); with the program, also steps/s without the capture
-     time (``steps_per_sec_no_capture``);
+     abs_rel, map points, the loop's KNN launches (the spread of identical
+     runs; ``--deterministic``: with deterministic algorithms and cuDNN,
+     whose runs repeat); with the program, also steps/s without the
+     capture time (``steps_per_sec_no_capture``);
   3. ``--profile_frames`` frames (at most the workload's own) under
-     ``torch.profiler``: device time by kernel family, the device's
-     launches (kernels and copies), and the device's idle share over the
-     adaptation loop (1 - kernel time / the run's own clock, profiler
-     overhead included), the host's launch calls and the device's kernels
-     per keyframe event, and the host synchronisations per event
+     ``torch.profiler``: device time by kernel family (the KNN kernels and
+     the convolutions; every other kernel is shared by several layers),
+     the program's own phase times per replayed event from its device
+     timestamps (``utils/tracing.py``: the sort, each step's forward,
+     loss, backward, optimizer and metrics, fusion), the device's launches
+     (kernels and copies), its idle share (1 - the union of its kernel and
+     copy intervals over the adaptation's ranges, profiler overhead
+     included),
+     the host's launch calls and the device's kernels per keyframe event,
+     and the host synchronisations per event
      (``torch.cuda.set_sync_debug_mode("warn")`` over the profiled run, as
      ``chip_smoke.py::host_syncs_per_event`` counts them).
 ``--workload chamfer`` applies tools/bench_exact.py's TUM chamfer row to
@@ -79,15 +84,15 @@ from e2eslam_tpu_torch.models.depth_net import make_depth_model
 from e2eslam_tpu_torch.ops import cuda_build
 from e2eslam_tpu_torch.ops import knn as knn_ops
 from e2eslam_tpu_torch.parallel.adaptation import ParallelAdaptation
+from e2eslam_tpu_torch.utils import tracing
 
-FAMILIES = (  # (family, substrings of CUDA kernel names), first match wins
+# (family, substrings of CUDA kernel names), first match wins: the kernels
+# only one layer launches. The rest (matmuls, sorts, gathers, reductions,
+# elementwise) serve several; the program's phase times place them.
+FAMILIES = (
     ("knn kernels", ("knn_",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
                               "fprop", "winograd", "cutlass")),
-    ("matmul", ("gemm",)),
-    ("sort", ("sort", "radix")),
-    ("scatter / gather / index", ("scatter", "gather", "index", "take")),
-    ("reductions", ("reduce", "argmax", "argmin", "max_kernel", "min_kernel")),
 )
 
 
@@ -96,7 +101,7 @@ def _family(name: str) -> str:
     for fam, keys in FAMILIES:
         if any(k in low for k in keys):
             return fam
-    return "elementwise / other"
+    return "other"
 
 
 def chamfer_config(cfg):
@@ -236,9 +241,10 @@ def make_sequences(b, seq_len, h, w, dilation=2):
 
 def run_batched(cfg, sequences, weights=None, dispatch="event", runner_hook=None):
     """One ``ParallelAdaptation`` run of ``sequences`` on the card with the
-    seeded network (or ``weights``) through ``dispatch``, launches counted;
-    ``runner_hook(par)`` sees the runner before it runs. Returns (the run's
-    line, the runner's result)."""
+    seeded network (or ``weights``) through ``dispatch``, the per-event
+    loop's launches counted (the wrappers' counter misses the program's
+    replays); ``runner_hook(par)`` sees the runner before it runs. Returns
+    (the run's line, the runner's result)."""
     b, L, h, w = sequences[0].shape[:4]
     for k in knn_ops.KERNELS:
         k.launches = 0
@@ -250,15 +256,19 @@ def run_batched(cfg, sequences, weights=None, dispatch="event", runner_hook=None
                   threshold=float(cfg.DEMO.frame_threshold), dispatch=dispatch)
     seqs = out["per_sequence"]
     busy = out["elapsed_s"] - out["capture_s"]
-    return {"B": b, "frames": L, "dispatch": out["dispatch"], "events": out["num_events"],
+    line = {"B": b, "frames": L, "dispatch": out["dispatch"], "events": out["num_events"],
             "refine_steps": out["refine_steps"], "elapsed_s": out["elapsed_s"],
             "aggregate_steps_per_sec": out["steps_per_sec"],
             "graphs": out["graphs"], "capture_s": out["capture_s"],
             "steps_per_sec_no_capture": out["refine_steps"] / busy if busy > 0 else 0.0,
             "keyframes": [r["num_keyframes"] for r in seqs],
             "mean_abs_rel": [r["mean_abs_rel"] for r in seqs],
-            "map_points": [r["map_points"] for r in seqs],
-            "launches": {k.__name__: k.launches for k in knn_ops.KERNELS}}, out
+            "map_points": [r["map_points"] for r in seqs]}
+    if out["dispatch"] != "whole":
+        line["launches"] = {k.__name__: k.launches for k in knn_ops.KERNELS}
+    if out["trace"] is not None:
+        line["trace"] = out["trace"]
+    return line, out
 
 
 def _batched(args, out, smi):
@@ -311,7 +321,7 @@ def _run(cfg, loop=None):
         runner.use_sequence_program = LOOPS[loop]
     result = runner.run(verbose=False)
     busy_s = result["elapsed_s"] - result["capture_s"]
-    return {
+    line = {
         "loop": loop,
         "sequence_program": result["sequence_program"],
         "graphs": result["graphs"],
@@ -327,8 +337,12 @@ def _run(cfg, loop=None):
         "ate": result["ate"],
         "rpe": result["rpe"],
         "compactions": result["compactions"],
-        "launches": {k.__name__: k.launches for k in knn_ops.KERNELS},
     }
+    if not result["sequence_program"]:  # the wrappers' counter misses the replays
+        line["launches"] = {k.__name__: k.launches for k in knn_ops.KERNELS}
+    if result["trace"] is not None:
+        line["trace"] = result["trace"]
+    return line
 
 
 def main(argv=None):
@@ -421,11 +435,17 @@ def profile_batched(cfg, sequences, dispatch):
 
 def profiled_run(run, events_of, host_ops=True):
     """``run()`` (returning a line with ``elapsed_s``, its own synchronised
-    clock over the adaptation alone) under ``torch.profiler`` (with the
-    host's operators unless ``host_ops`` is off; the CUDA runtime's calls
-    are traced either way) and the sync-debug warnings: the line with the
-    device's time by kernel family, its idle share, its launches (kernels
-    and copies) and the host's launch calls and synchronisations per event
+    clock over the adaptation alone, and the run's ``trace``) under
+    ``torch.profiler`` (with the host's operators unless ``host_ops`` is
+    off; the CUDA runtime's calls are traced either way) and the sync-debug
+    warnings: the line with the device's time by kernel family, the
+    program's phase times per replayed event (``phase_ms_per_event``), the
+    marks' own device time (``timestamp_us_per_event``) and their clock
+    against the profiler's (``stamp_clock_gap_us_max``), the device's idle
+    share (1 - the union of its intervals over the adaptation's ranges:
+    the program's, or the loop's events; over its first to last interval
+    when the host is not traced), its launches (kernels and copies) and
+    the host's launch calls and synchronisations per event
     (``events_of(line)`` events)."""
     import warnings
 
@@ -441,14 +461,11 @@ def profiled_run(run, events_of, host_ops=True):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchroniz" in str(w.message) for w in caught)
-    # The run's own clock starts after the runner is built and the frames
-    # are rendered, so the idle share is over the adaptation loop alone.
-    wall_ms = profiled["elapsed_s"] * 1e3
+    trace = profiled.pop("trace", None)
+    events = max(events_of(profiled), 1)
     fam, kernels = {}, []
-    busy_us = 0.0
     launches = 0
     host_launches = 0
-    events = max(events_of(profiled), 1)
     for evt in prof.key_averages():
         if evt.key in HOST_LAUNCHES:
             host_launches += evt.count
@@ -456,26 +473,56 @@ def profiled_run(run, events_of, host_ops=True):
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         if (not dev_us or evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False) or "#" in evt.key):
+                or getattr(evt, "is_user_annotation", False) or "#" in evt.key
+                or evt.key.startswith(tracing.PREFIX)):
             continue  # annotations span kernels already counted
-        busy_us += dev_us
         launches += evt.count
         fam[_family(evt.key)] = fam.get(_family(evt.key), 0.0) + dev_us / 1e3
         kernels.append((dev_us / 1e3, evt.count, evt.key[:90]))
     kernels.sort(reverse=True)
+    all_events = prof.events()
+    device = tracing.device_intervals(all_events)
+    ranges = [(e.time_range.start, e.time_range.end) for e in all_events
+              if e.name.startswith(tracing.PREFIX) and not e.name.startswith(tracing.PREFIX + "unit.")
+              and not str(e.device_type).endswith("CUDA")]
+    span = ranges or [(s, e) for s, e, _ in device]
+    lo, hi = min(s for s, _ in span), max(e for _, e in span)
+    busy_us = tracing.union_length([(max(s, lo), min(e, hi)) for s, e, _ in device
+                                    if e > lo and s < hi])
+    stamps_us = sum(e - s for s, e, n in device if n == tracing.TIMESTAMP_KERNEL)
+    gaps = tracing.stamp_clock_gaps_us(trace, device) if trace else []
     profiled.update({
-        "wall_ms": wall_ms,
+        "wall_ms": profiled["elapsed_s"] * 1e3,
+        "span_ms": (hi - lo) / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_launches": launches,
         "device_launches_per_event": launches / events,
         "host_launch_calls_per_event": host_launches / events,
         "host_syncs": syncs,
         "host_syncs_per_event": syncs / events,
-        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
+        "device_idle_share": 1.0 - busy_us / (hi - lo) if hi > lo else None,
         "device_ms_by_family": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
+        "phase_ms_per_event": phase_ms_per_event(trace) if trace else None,
+        "timestamp_us_per_event": stamps_us / events,
+        "stamp_clock_gap_us_max": max((abs(g) for g in gaps), default=None),
         "top_kernels_ms_count": kernels[:15],
     })
     return profiled
+
+
+def phase_ms_per_event(trace):
+    """A run's ``trace``: each phase's mean ms over its replayed events (all
+    its events where none replayed), the steps' phases summed over steps."""
+    ms = np.asarray(trace["event_phase_ms"])
+    if not len(ms):
+        return {}
+    rows = [e for e, r in enumerate(trace["replayed"]) if r] or list(range(len(ms)))
+    out = {}
+    for j, name in enumerate(trace["phases"]):
+        base = name.split(".")[0]
+        out[base] = out.get(base, 0.0) + float(ms[rows, j].mean())
+    return out
+
 
 if __name__ == "__main__":
     main()

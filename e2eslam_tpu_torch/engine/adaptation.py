@@ -62,6 +62,7 @@ from e2eslam_tpu_torch.losses.trajectory import (
 from e2eslam_tpu_torch.models.convert import load_depth_weights
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
 from e2eslam_tpu_torch.slam.compact import compact_map
+from e2eslam_tpu_torch.utils import tracing
 from e2eslam_tpu_torch.viz.images import dump_debug_images
 from e2eslam_tpu_torch.viz.logging import ScalarLogger
 
@@ -239,12 +240,18 @@ class OnlineAdaptation(KeyframeViews):
 
     ``run`` writes the JAX runner's observability outputs (the module's
     docstring) and returns the path of a ``VIZ.profile_dir`` trace as
-    ``profile_trace``.
+    ``profile_trace``; a run that starts while a profiler records (such a
+    trace, or the caller's) returns its spans and each event's phase times
+    as ``trace`` (``utils/tracing.py``; None otherwise).
     """
 
     use_sequence_program = True
 
     def __init__(self, config, *, dataset=None, device=None, model=None):
+        with tracing.session(), tracing.span("unit.build"):
+            self._build(config, dataset, device, model)
+
+    def _build(self, config, dataset, device, model):
         validate_config(config)
         mode = str(config.OPTIMIZATION.get("refinement", "PFT"))
         if mode != "PFT":
@@ -282,21 +289,23 @@ class OnlineAdaptation(KeyframeViews):
         if verbose is None:
             verbose = bool(cfg.DEBUG.get("print_metrics", False))
         dev = self.device
-        colors, gt_depths, intrinsics, poses_np, _ = load_batch(self.dataset, [0])
-        colors = torch.from_numpy(colors[0]).to(dev)
-        gt_depths = torch.from_numpy(gt_depths[0]).to(dev)
-        poses = torch.from_numpy(poses_np[0]).to(dev)
-        K = torch.from_numpy(intrinsics[0]).to(dev)
-        schedule = keyframe_schedule(poses_np[0], float(cfg.DEMO.frame_threshold))
-
-        engine = self.engine
-        global_map = engine.make_empty_map()
-        self._views_start()
-        program = sequence_program_blocker(
-            cfg, verbose=verbose, use_sequence_program=self.use_sequence_program) is None
         # The JAX runner starts its trace, then opens its log, then its clock
-        # (adaptation.py:174-182).
-        with run_trace(cfg.VIZ.get("profile_dir"), dev, str(cfg.SETTINGS.name)) as trace:
+        # (adaptation.py:174-182). The trace, and tracing, hold the whole run.
+        with run_trace(cfg.VIZ.get("profile_dir"), dev, str(cfg.SETTINGS.name)) as trace, \
+                tracing.session() as tr:
+            with tracing.span("unit.load_batch"):
+                colors, gt_depths, intrinsics, poses_np, _ = load_batch(self.dataset, [0])
+                colors = torch.from_numpy(colors[0]).to(dev)
+                gt_depths = torch.from_numpy(gt_depths[0]).to(dev)
+                poses = torch.from_numpy(poses_np[0]).to(dev)
+                K = torch.from_numpy(intrinsics[0]).to(dev)
+            schedule = keyframe_schedule(poses_np[0], float(cfg.DEMO.frame_threshold))
+
+            engine = self.engine
+            global_map = engine.make_empty_map()
+            self._views_start()
+            program = sequence_program_blocker(
+                cfg, verbose=verbose, use_sequence_program=self.use_sequence_program) is None
             logger = (ScalarLogger(cfg.SETTINGS.log_path, cfg.SETTINGS.name)
                       if cfg.SETTINGS.get("log_path") else None)
             self._sync()
@@ -310,9 +319,14 @@ class OnlineAdaptation(KeyframeViews):
                 info = {"graphs": 0, "capture_s": 0.0}
             self._sync()
             elapsed = time.perf_counter() - t_start
-        info["profile_trace"] = trace[0] if trace else None
-        return self._summary(global_map, keyframes, metrics, est, seeded_at, elapsed, poses_np,
-                             intrinsics, verbose, program, info, logger)
+            with tracing.span("unit.summary"):
+                result = self._summary(global_map, keyframes, metrics, est, seeded_at, elapsed,
+                                       poses_np, intrinsics, verbose, program, info, logger)
+        # VIZ.profile_dir's trace file (None without one), written as its
+        # block ends.
+        result["profile_trace"] = trace[0] if trace else None
+        result["trace"] = tr.finish() if tr is not None else None
+        return result
 
     def _run_program(self, global_map, colors, gt_depths, K, poses, schedule):
         """The run through ``RefinementEngine.process_sequence``: one read of
@@ -324,28 +338,30 @@ class OnlineAdaptation(KeyframeViews):
         keyframes = [c for _, c in schedule]
         global_map, stacked, est_t, info = engine.process_sequence(
             global_map, colors, gt_depths, K, poses, prev_idx, keyframes)
-        names = sorted(n for n, t in stacked.items() if t.dim() == 1)
-        rows = {n: stacked[n].cpu().numpy() for n in stacked if stacked[n].dim() > 1}
-        if names:
-            table = torch.stack([stacked[n].double() for n in names]).cpu().numpy()
-            rows.update(zip(names, table))
-        norm_names = [n for n, _ in engine.model.named_parameters()]
-        metrics = [metrics_from_rows({n: r[e] for n, r in rows.items()}, norm_names)
-                   for e in range(len(keyframes))]
-        kf = global_map.kf_counter
-        global_map = dataclasses.replace(global_map, count=int(global_map.count),
-                                         kf_counter=None if kf is None else int(kf))
-        passes = info["compactions"]
-        counts = torch.stack([c.pop("counts") for c in passes]).tolist() if passes else []
-        for c, (before, after) in zip(passes, counts):
-            c.update(frame=keyframes[c["keyframe"]], before=before, after=after)
+        with tracing.span("program.readback"):
+            names = sorted(n for n, t in stacked.items() if t.dim() == 1)
+            rows = {n: stacked[n].cpu().numpy() for n in stacked if stacked[n].dim() > 1}
+            if names:
+                table = tracing.read(torch.stack([stacked[n].double() for n in names]))
+                rows.update(zip(names, table))
+            norm_names = [n for n, _ in engine.model.named_parameters()]
+            metrics = [metrics_from_rows({n: r[e] for n, r in rows.items()}, norm_names)
+                       for e in range(len(keyframes))]
+            kf = global_map.kf_counter
+            global_map = dataclasses.replace(global_map, count=int(global_map.count),
+                                             kf_counter=None if kf is None else int(kf))
+            passes = info["compactions"]
+            counts = torch.stack([c.pop("counts") for c in passes]).tolist() if passes else []
+            for c, (before, after) in zip(passes, counts):
+                c.update(frame=keyframes[c["keyframe"]], before=before, after=after)
+            est = est_t.cpu().numpy()
         self.compactions = passes
         # Every event sorts the whole buffer afresh (brute path); every warm
         # event past the first takes the previous event's final KNN indices.
         if self._bucketed_sort and keyframes:
             self.sorted_at = list(range(len(keyframes)))
         seeded_at = list(range(1, len(keyframes))) if engine.warm else []
-        return global_map, keyframes, metrics, est_t.cpu().numpy(), seeded_at, info
+        return global_map, keyframes, metrics, est, seeded_at, info
 
     def _run_loop(self, global_map, colors, gt_depths, K, poses, schedule, verbose):
         """The per-keyframe loop (the JAX runner's ``adaptation.py:225-377``)."""
@@ -451,8 +467,6 @@ class OnlineAdaptation(KeyframeViews):
             "sequence_program": program,
             "graphs": info["graphs"],
             "capture_s": info["capture_s"],
-            # VIZ.profile_dir's trace file (None without one).
-            "profile_trace": info["profile_trace"],
         }
         if compacted is not None:
             result["map_points_compacted"] = compacted

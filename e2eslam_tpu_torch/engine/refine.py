@@ -101,6 +101,7 @@ from e2eslam_tpu_torch.slam.odometry import point_to_plane_icp
 from e2eslam_tpu_torch.slam.pointclouds import MapState, empty_map, on_device
 from e2eslam_tpu_torch.slam.rgbd import build_frame, normal_map
 from e2eslam_tpu_torch.slam.slam import PointFusion
+from e2eslam_tpu_torch.utils import tracing
 
 Tensor = torch.Tensor
 
@@ -712,37 +713,42 @@ class RefinementEngine:
                                    device=pair.colors.device,
                                    requires_grad=True)
                     for k, shape in decoder_tap_shapes(F, H, W).items()}
-        # The program's replays keep the gradients' buffers: zeroed, not freed.
-        self.optimizer.zero_grad(set_to_none=self._schedule is None)
-        disp, depth = self.forward_depths(pair.colors, taps=taps)
-        loss, aux, depth, outputs = self.step_loss(pair, disp, depth, map_state, map_index,
-                                                   knn_init, thread_knn, step)
-        loss.backward()
-        for p in self._zero_grads:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = None
-        if obs_grads or return_grads:
-            # Every parameter, a zero standing in for a missing gradient
-            # (refine.py:974-977, :999-1005).
-            grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                     for n, p in self.model.named_parameters()}
-        if self._schedule is None:
-            self.optimizer.step()
-            self.scheduler.step()
-        else:
-            self._schedule.set_lr()
-            self.optimizer.step()
-            self._schedule.stepped()
-        knn_cache = aux.pop("_knn_idx", None)
-        metrics = self.step_metrics(pair, depth, loss, aux)
-        if obs_images:
-            metrics["debug_images"] = self._debug_images(pair, depth, outputs)
-        if obs_grads:
-            norms = torch._foreach_norm([g.float() for g in grads.values()])
-            metrics["grad_norms"] = dict(zip(grads, norms))
-        if taps is not None:
-            metrics["grad_images"] = {k: t.grad.float() for k, t in taps.items()}
+        with tracing.phase("step.forward"):
+            # The program's replays keep the gradients' buffers: zeroed, not freed.
+            self.optimizer.zero_grad(set_to_none=self._schedule is None)
+            disp, depth = self.forward_depths(pair.colors, taps=taps)
+        with tracing.phase("step.loss"):
+            loss, aux, depth, outputs = self.step_loss(pair, disp, depth, map_state, map_index,
+                                                       knn_init, thread_knn, step)
+        with tracing.phase("step.backward"):
+            loss.backward()
+            for p in self._zero_grads:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = None
+            if obs_grads or return_grads:
+                # Every parameter, a zero standing in for a missing gradient
+                # (refine.py:974-977, :999-1005).
+                grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                         for n, p in self.model.named_parameters()}
+        with tracing.phase("step.optimizer"):
+            if self._schedule is None:
+                self.optimizer.step()
+                self.scheduler.step()
+            else:
+                self._schedule.set_lr()
+                self.optimizer.step()
+                self._schedule.stepped()
+        with tracing.phase("step.metrics"):
+            knn_cache = aux.pop("_knn_idx", None)
+            metrics = self.step_metrics(pair, depth, loss, aux)
+            if obs_images:
+                metrics["debug_images"] = self._debug_images(pair, depth, outputs)
+            if obs_grads:
+                norms = torch._foreach_norm([g.float() for g in grads.values()])
+                metrics["grad_norms"] = dict(zip(grads, norms))
+            if taps is not None:
+                metrics["grad_images"] = {k: t.grad.float() for k, t in taps.items()}
         return metrics, knn_cache, grads if return_grads else None
 
     def step_loss(self, pair: PairBatch, disp: Tensor, depth: Tensor,
@@ -981,7 +987,8 @@ class RefinementEngine:
             if self.warm:
                 kc = cache
             steps.append(metrics)
-        view, est_pose = self.fuse_pair(fuse_batch or pair, view, fuse_prev=fuse_prev)
+        with tracing.phase("event.fusion"):
+            view, est_pose = self.fuse_pair(fuse_batch or pair, view, fuse_prev=fuse_prev)
         return dataclasses.replace(view, data=map_state.data), steps, est_pose, kc
 
     # ------------------------------------------------------------------
@@ -1002,26 +1009,31 @@ class RefinementEngine:
         estimated pose into ``est[ev_i]``. So a CUDA graph of it replays
         against the same tensors."""
         colors, gt_depths, poses = seq
-        pair = PairBatch(colors=colors.index_select(0, pair_i),
-                         gt_depths=gt_depths.index_select(0, pair_i), intrinsics=K,
-                         poses=poses.index_select(0, pair_i))
-        # The whole buffer's sort: the seeds it invalidates are re-scored
-        # (refine.py:1375-1380).
-        map_index = self.build_map_index(ms)
-        new, steps, est_pose, kc = self.process_pair(pair, ms, map_index, fuse_prev=fuse_prev,
-                                                     knn_init0=carry.get("kc"))
-        for name, value in event_rows(steps[-1]).items():
-            if name not in out:
-                out[name] = value.new_zeros((est.shape[0],) + value.shape)
-            out[name].index_copy_(0, ev_i, value[None])
-        est.index_copy_(0, ev_i, est_pose[None].to(est.dtype))
-        store_map(ms, new)
-        if kc is not None:
-            if carry.get("kc") is None:
-                carry["kc"] = {k: v.clone() for k, v in kc.items()}
-            else:
-                for k, v in kc.items():
-                    carry["kc"][k].copy_(v)
+        with tracing.event(ev_i):
+            with tracing.phase("event.inputs"):
+                pair = PairBatch(colors=colors.index_select(0, pair_i),
+                                 gt_depths=gt_depths.index_select(0, pair_i), intrinsics=K,
+                                 poses=poses.index_select(0, pair_i))
+            with tracing.phase("event.sort"):
+                # The whole buffer's sort: the seeds it invalidates are
+                # re-scored (refine.py:1375-1380).
+                map_index = self.build_map_index(ms)
+            new, steps, est_pose, kc = self.process_pair(pair, ms, map_index,
+                                                         fuse_prev=fuse_prev,
+                                                         knn_init0=carry.get("kc"))
+            with tracing.phase("event.rows"):
+                for name, value in event_rows(steps[-1]).items():
+                    if name not in out:
+                        out[name] = value.new_zeros((est.shape[0],) + value.shape)
+                    out[name].index_copy_(0, ev_i, value[None])
+                est.index_copy_(0, ev_i, est_pose[None].to(est.dtype))
+                store_map(ms, new)
+                if kc is not None:
+                    if carry.get("kc") is None:
+                        carry["kc"] = {k: v.clone() for k, v in kc.items()}
+                    else:
+                        for k, v in kc.items():
+                            carry["kc"][k].copy_(v)
 
     def compact_in_place(self, ms: MapState, pose: Tensor, K: Tensor, bound: int) -> Tensor:
         """The programs' compaction pass: the configured pass over the
@@ -1069,6 +1081,9 @@ class RefinementEngine:
         the bucket that holds a host bound on the count. ``map_state`` is
         updated in place (its count becomes a device tensor).
 
+        While a run is traced (``utils/tracing.py``) each event's phases
+        are host ranges and device timestamps in the graph.
+
         Returns (map, metrics ``{name: [E, ...]}`` of each event's last
         step (``event_rows``), estimated poses ``[E, 4, 4]``, info:
         ``graphs`` captured,
@@ -1102,6 +1117,8 @@ class RefinementEngine:
         side = torch.cuda.Stream(device=dev) if cuda else None
         if cuda:
             side.wait_stream(torch.cuda.current_stream(dev))
+        tracing.begin_events(E, self.refinement_steps, dev,
+                             replayed=[cuda and e >= 2 for e in range(E)])
         graph = None
         try:
             for e in range(E):
@@ -1110,22 +1127,25 @@ class RefinementEngine:
                 with ctx:
                     if warm and graph is None:
                         torch.cuda.current_stream(dev).wait_stream(side)
-                        graph = self._capture_event(seq, K, pair_i, ev_i, ms, carry, out, est,
-                                                    info)
+                        with tracing.span("program.capture"):
+                            graph = self._capture_event(seq, K, pair_i, ev_i, ms, carry, out,
+                                                        est, info)
                     if warm:
-                        with _sync_debug(self.replay_sync_mode):
+                        with tracing.span("program.replay"), _sync_debug(self.replay_sync_mode):
                             pair_i.copy_(pairs[e], non_blocking=True)
                             ev_i.copy_(events[e], non_blocking=True)
                             graph.replay()
                     else:
-                        pair_i.copy_(pairs[e], non_blocking=True)
-                        ev_i.copy_(events[e], non_blocking=True)
-                        self._sequence_event(seq, K, pair_i, ev_i, ms, carry, out, est,
-                                             fuse_prev=e == 0)
+                        with tracing.span("program.eager_event"):
+                            pair_i.copy_(pairs[e], non_blocking=True)
+                            ev_i.copy_(events[e], non_blocking=True)
+                            self._sequence_event(seq, K, pair_i, ev_i, ms, carry, out, est,
+                                                 fuse_prev=e == 0)
                     if period and (e + 1) % period == 0:
                         # Event 0 fuses two frames, every later event one.
                         bound = self.fused_rows_bound(start, e + 2)
-                        with _sync_debug(self.replay_sync_mode if cuda else None):
+                        with tracing.span("program.compact"), \
+                                _sync_debug(self.replay_sync_mode if cuda else None):
                             counts = self.compact_in_place(ms, est[e], K, bound)
                         info["compactions"].append({"keyframe": e, "counts": counts})
             if cuda and graph is None:

@@ -89,6 +89,7 @@ from e2eslam_tpu_torch.losses.trajectory import absolute_trajectory_error, relat
 from e2eslam_tpu_torch.ops.batched_rows import FLAT_ROW_OPS
 from e2eslam_tpu_torch.parallel.mesh import Mesh, ParallelRefinement, ParallelState, local_rows
 from e2eslam_tpu_torch.slam.pointclouds import on_device
+from e2eslam_tpu_torch.utils import tracing
 
 DISPATCH = ("whole", "event", "auto")
 WHOLE_MAX_SEQ = 8  # "auto" takes the per-event loop from this many sequences (JAX :338-341)
@@ -112,8 +113,9 @@ class ParallelAdaptation:
     def __init__(self, config, model=None, *, map_capacity: int, mesh: Optional[Mesh] = None,
                  n_seq: Optional[int] = None, device=None):
         self.config = config
-        self.par = ParallelRefinement(config, model, map_capacity=map_capacity, mesh=mesh,
-                                      n_seq=n_seq, device=device)
+        with tracing.session(), tracing.span("unit.build"):
+            self.par = ParallelRefinement(config, model, map_capacity=map_capacity, mesh=mesh,
+                                          n_seq=n_seq, device=device)
         self.mesh = self.par.mesh
         self.n = self.par.n
         self.R = int(config.OPTIMIZATION.refinement_steps)
@@ -122,7 +124,8 @@ class ParallelAdaptation:
             raise ValueError("DEMO.sequence_length_refinement must be at least 2")
 
     def init_state(self, weights=None) -> ParallelState:
-        return self.par.init_state(weights)
+        with tracing.session(), tracing.span("unit.build"):
+            return self.par.init_state(weights)
 
     def init_maps(self):
         return self.par.init_maps()
@@ -159,11 +162,19 @@ class ParallelAdaptation:
 
         Returns ``{"state", "maps" (this rank's), "per_sequence" (all N, in
         order), "num_events", "refine_steps", "elapsed_s",
-        "steps_per_sec", "dispatch", "graphs", "capture_s"}``;
+        "steps_per_sec", "dispatch", "graphs", "capture_s", "trace"}``;
         ``steps_per_sec`` counts every sequence's steps over this rank's
         synchronised clock, ``graphs`` and ``capture_s`` the program's CUDA
-        graphs and their capture time (inside ``elapsed_s``).
+        graphs and their capture time (inside ``elapsed_s``), ``trace``
+        this rank's spans and phase timestamps when a profiler recorded as
+        the run started (``utils/tracing.py``; else None).
         """
+        with tracing.session() as tr:
+            result = self._run(state, sequences, threshold, generator, dispatch)
+        result["trace"] = tr.finish() if tr is not None else None
+        return result
+
+    def _run(self, state, sequences, threshold, generator, dispatch):
         mode = self.dispatch_mode(dispatch)
         par = self.par
         dev, n, first = par.device, par.n_local, par.first
@@ -182,7 +193,8 @@ class ParallelAdaptation:
         if generator is not None:
             seeds = torch.randint(0, 2**62, (N,), generator=generator).tolist()
         par.reseed(seeds)
-        data = local_rows(self.mesh, self.n, (colors, gt_depths, intrinsics, poses), dev)
+        with tracing.span("unit.load_batch"):
+            data = local_rows(self.mesh, self.n, (colors, gt_depths, intrinsics, poses), dev)
         own = list(range(first, first + n))
         self._sync()
         t_start = time.perf_counter()
@@ -195,43 +207,43 @@ class ParallelAdaptation:
             info = {"graphs": 0, "capture_s": 0.0}
         self._sync()
         elapsed = time.perf_counter() - t_start
-
-        results = []
-        for j, g in enumerate(own):
-            abs_rels = [m["abs_rel"] for m in metrics[j] if m is not None]
-            gt_kf = poses_np[g][np.asarray(keyframes[j], dtype=np.int64)]
-            k = len(keyframes[j])
-            results.append({
-                "num_keyframes": k,
-                "keyframes": keyframes[j],
-                "metrics": metrics[j],
-                "per_pair_abs_rel": abs_rels,
-                "mean_abs_rel": float(np.mean(abs_rels)) if abs_rels else float("nan"),
-                "est_poses": est[j],
-                "ate": absolute_trajectory_error(gt_kf, est[j]) if k >= 2 else float("nan"),
-                "rpe": relative_pose_error(gt_kf, est[j]) if k >= 2 else float("nan"),
-                "map_points": int(maps[j].count),
-                "compactions": compactions[j],
-            })
-        if self.mesh.size > 1:
-            # The only collective of the run: every rank's results, in rank
-            # order (the sequences' order).
-            gathered = [None] * self.mesh.size
-            dist.all_gather_object(gathered, results, group=self.mesh.group)
-            results = [r for part in gathered for r in part]
-        total_steps = self.R * sum(counts)
-        return {
-            "state": state,
-            "maps": maps,
-            "per_sequence": results,
-            "num_events": E,
-            "refine_steps": total_steps,
-            "elapsed_s": elapsed,
-            "steps_per_sec": total_steps / elapsed if elapsed > 0 else 0.0,
-            "dispatch": mode,
-            "graphs": info["graphs"],
-            "capture_s": info["capture_s"],
-        }
+        with tracing.span("unit.summary"):
+            results = []
+            for j, g in enumerate(own):
+                abs_rels = [m["abs_rel"] for m in metrics[j] if m is not None]
+                gt_kf = poses_np[g][np.asarray(keyframes[j], dtype=np.int64)]
+                k = len(keyframes[j])
+                results.append({
+                    "num_keyframes": k,
+                    "keyframes": keyframes[j],
+                    "metrics": metrics[j],
+                    "per_pair_abs_rel": abs_rels,
+                    "mean_abs_rel": float(np.mean(abs_rels)) if abs_rels else float("nan"),
+                    "est_poses": est[j],
+                    "ate": absolute_trajectory_error(gt_kf, est[j]) if k >= 2 else float("nan"),
+                    "rpe": relative_pose_error(gt_kf, est[j]) if k >= 2 else float("nan"),
+                    "map_points": int(maps[j].count),
+                    "compactions": compactions[j],
+                })
+            if self.mesh.size > 1:
+                # The only collective of the run: every rank's results, in rank
+                # order (the sequences' order).
+                gathered = [None] * self.mesh.size
+                dist.all_gather_object(gathered, results, group=self.mesh.group)
+                results = [r for part in gathered for r in part]
+            total_steps = self.R * sum(counts)
+            return {
+                "state": state,
+                "maps": maps,
+                "per_sequence": results,
+                "num_events": E,
+                "refine_steps": total_steps,
+                "elapsed_s": elapsed,
+                "steps_per_sec": total_steps / elapsed if elapsed > 0 else 0.0,
+                "dispatch": mode,
+                "graphs": info["graphs"],
+                "capture_s": info["capture_s"],
+            }
 
     def _run_loop(self, state, data, schedules, E):
         """The per-event loop over the local sequences' ``schedules``.
@@ -330,6 +342,7 @@ class ParallelAdaptation:
         if cuda:
             side.wait_stream(torch.cuda.current_stream(dev))
         sync_mode = par.engines[0].replay_sync_mode
+        tracing.begin_events(E, self.R, dev, replayed=[cuda and e >= 2 for e in range(E)])
         graph = None
         try:
             for e in range(E):
@@ -338,51 +351,57 @@ class ParallelAdaptation:
                 with ctx:
                     if warm and graph is None:
                         torch.cuda.current_stream(dev).wait_stream(side)
-                        graph = self._capture_event(state, seq, ins, maps, carry, out, est,
-                                                    info)
+                        with tracing.span("program.capture"):
+                            graph = self._capture_event(state, seq, ins, maps, carry, out, est,
+                                                        info)
                     if warm:
-                        with _sync_debug(sync_mode):
+                        with tracing.span("program.replay"), _sync_debug(sync_mode):
                             self._feed(ins, pairs_h[e], act_h[e], ev_h[e])
                             graph.replay()
                     else:
-                        self._feed(ins, pairs_h[e], act_h[e], ev_h[e])
-                        self._event(state, seq, ins, maps, carry, out, est, fuse_prev=e == 0)
+                        with tracing.span("program.eager_event"):
+                            self._feed(ins, pairs_h[e], act_h[e], ev_h[e])
+                            self._event(state, seq, ins, maps, carry, out, est,
+                                        fuse_prev=e == 0)
                     if period and (e + 1) % period == 0:
                         # The JAX ``compact_batch``: projective passes where
                         # the event was active, voxel passes for every map;
                         # each over the bucket that holds its frames' rows.
-                        for j in range(n):
-                            if e < counts[j] or voxel:
-                                engine = par.engines[j]
-                                fused = min(e + 1, counts[j]) + 1 if counts[j] else 0
-                                bound = engine.fused_rows_bound(0, fused)
-                                with _sync_debug(sync_mode if cuda else None):
-                                    passes.append((j, e, engine.compact_in_place(
-                                        maps[j], est[j, e], K[j], bound)))
+                        with tracing.span("program.compact"):
+                            for j in range(n):
+                                if e < counts[j] or voxel:
+                                    engine = par.engines[j]
+                                    fused = min(e + 1, counts[j]) + 1 if counts[j] else 0
+                                    bound = engine.fused_rows_bound(0, fused)
+                                    with _sync_debug(sync_mode if cuda else None):
+                                        passes.append((j, e, engine.compact_in_place(
+                                            maps[j], est[j, e], K[j], bound)))
             if cuda and graph is None:
                 torch.cuda.current_stream(dev).wait_stream(side)
         finally:
             if par._schedule is not None:
                 par._schedule.exit()
                 par._schedule = None
-        names = sorted(k for k, t in out.items() if t.dim() == 2)
-        rows = {k: out[k].cpu().numpy() for k in out if out[k].dim() > 2}
-        if names:
-            rows.update(zip(names, torch.stack([out[k].double() for k in names]).cpu().numpy()))
-        est_np = est.cpu().numpy()
-        compactions: List[List[Dict]] = [[] for _ in range(n)]
-        if passes:
-            for (j, e, _), (before, after) in zip(
-                    passes, torch.stack([c for _, _, c in passes]).tolist()):
-                compactions[j].append({"keyframe": e, "frame": events[e][j][1],
-                                       "before": before, "after": after})
-        keyframes = [[c for _, c in s] for s in schedules]
-        norm_names = list(state.params)
-        metrics = [[metrics_from_rows({k: r[j, e] for k, r in rows.items()}, norm_names)
-                    for e in range(counts[j])] for j in range(n)]
-        maps = [dataclasses.replace(m, count=int(m.count),
-                                    kf_counter=None if m.kf_counter is None
-                                    else int(m.kf_counter)) for m in maps]
+        with tracing.span("program.readback"):
+            names = sorted(k for k, t in out.items() if t.dim() == 2)
+            rows = {k: out[k].cpu().numpy() for k in out if out[k].dim() > 2}
+            if names:
+                rows.update(zip(names, tracing.read(torch.stack([out[k].double()
+                                                                 for k in names]))))
+            est_np = est.cpu().numpy()
+            compactions: List[List[Dict]] = [[] for _ in range(n)]
+            if passes:
+                for (j, e, _), (before, after) in zip(
+                        passes, torch.stack([c for _, _, c in passes]).tolist()):
+                    compactions[j].append({"keyframe": e, "frame": events[e][j][1],
+                                           "before": before, "after": after})
+            keyframes = [[c for _, c in s] for s in schedules]
+            norm_names = list(state.params)
+            metrics = [[metrics_from_rows({k: r[j, e] for k, r in rows.items()}, norm_names)
+                        for e in range(counts[j])] for j in range(n)]
+            maps = [dataclasses.replace(m, count=int(m.count),
+                                        kf_counter=None if m.kf_counter is None
+                                        else int(m.kf_counter)) for m in maps]
         return (maps, keyframes, metrics, [est_np[j, :counts[j]] for j in range(n)],
                 compactions, info)
 
@@ -405,34 +424,40 @@ class ParallelAdaptation:
         pi, act, ev_i = ins
         colors, gt_depths, K, poses = seq
         take = FLAT_ROW_OPS.take
-        pairs = PairBatch(colors=take(colors, pi), gt_depths=take(gt_depths, pi), intrinsics=K,
-                          poses=take(poses, pi))
-        index = [engine.build_map_index(m) for engine, m in zip(par.engines, maps)]
-        warm = par.engines[0].warm
-        kc = carry.get("kc") if warm else None
-        metrics = None
-        for r in range(self.R):
-            metrics, caches = par.refine_step(state, pairs, maps, map_indices=index,
-                                              knn_init=kc, thread_knn=warm, step=r, active=act)
-            if warm:
-                kc = caches
-        new, est_e = par.fuse_pair(state, pairs, maps, fuse_prev=fuse_prev, active=act)
-        rows = [event_rows(m) for m in metrics]
-        for name in rows[0]:
-            value = torch.stack([r[name] for r in rows])
-            if name not in out:
-                out[name] = value.new_zeros(est.shape[:2] + value.shape[1:])
-            out[name].index_copy_(1, ev_i, value[:, None])
-        est.index_copy_(1, ev_i, torch.stack(est_e)[:, None].to(est.dtype))
-        for m, m_new in zip(maps, new):
-            store_map(m, m_new)
-        if kc is not None:
-            if carry.get("kc") is None:
-                carry["kc"] = [{k: v.clone() for k, v in c.items()} for c in kc]
-            else:
-                for dst, src in zip(carry["kc"], kc):
-                    for k, v in src.items():
-                        dst[k].copy_(v)
+        with tracing.event(ev_i):
+            with tracing.phase("event.inputs"):
+                pairs = PairBatch(colors=take(colors, pi), gt_depths=take(gt_depths, pi),
+                                  intrinsics=K, poses=take(poses, pi))
+            with tracing.phase("event.sort"):
+                index = [engine.build_map_index(m) for engine, m in zip(par.engines, maps)]
+            warm = par.engines[0].warm
+            kc = carry.get("kc") if warm else None
+            metrics = None
+            for r in range(self.R):
+                metrics, caches = par.refine_step(state, pairs, maps, map_indices=index,
+                                                  knn_init=kc, thread_knn=warm, step=r,
+                                                  active=act)
+                if warm:
+                    kc = caches
+            with tracing.phase("event.fusion"):
+                new, est_e = par.fuse_pair(state, pairs, maps, fuse_prev=fuse_prev, active=act)
+            with tracing.phase("event.rows"):
+                rows = [event_rows(m) for m in metrics]
+                for name in rows[0]:
+                    value = torch.stack([r[name] for r in rows])
+                    if name not in out:
+                        out[name] = value.new_zeros(est.shape[:2] + value.shape[1:])
+                    out[name].index_copy_(1, ev_i, value[:, None])
+                est.index_copy_(1, ev_i, torch.stack(est_e)[:, None].to(est.dtype))
+                for m, m_new in zip(maps, new):
+                    store_map(m, m_new)
+                if kc is not None:
+                    if carry.get("kc") is None:
+                        carry["kc"] = [{k: v.clone() for k, v in c.items()} for c in kc]
+                    else:
+                        for dst, src in zip(carry["kc"], kc):
+                            for k, v in src.items():
+                                dst[k].copy_(v)
 
     def _capture_event(self, state, seq, ins, maps, carry, out, est, info):
         """Capture one warm event (no fusion of the previous frame) as a CUDA

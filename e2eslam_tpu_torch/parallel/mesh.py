@@ -55,6 +55,7 @@ from e2eslam_tpu_torch.engine.refine import PairBatch, RefinementEngine, validat
 from e2eslam_tpu_torch.models.convert import load_depth_weights
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
 from e2eslam_tpu_torch.slam.pointclouds import MapState
+from e2eslam_tpu_torch.utils import tracing
 
 Tensor = torch.Tensor
 
@@ -265,38 +266,43 @@ class ParallelRefinement:
         flags, mask = _flags(active, n, self.device)
         map_indices = map_indices or [None] * n
         knn_init = knn_init or [None] * n
-        # The program's replays keep the gradients' buffers: zeroed, not freed.
-        state.optimizer.zero_grad(set_to_none=self._schedule is None)
-        out = self.forward(state, self._net_inputs(pairs))
+        with tracing.phase("step.forward"):
+            # The program's replays keep the gradients' buffers: zeroed, not freed.
+            state.optimizer.zero_grad(set_to_none=self._schedule is None)
+            out = self.forward(state, self._net_inputs(pairs))
         F = pairs.colors.shape[1]
         on_device = torch.is_tensor(active)
         total, held = None, [None] * n
-        for i, engine in enumerate(self.engines):
-            if not flags[i]:
-                continue
-            pair = pair_of(pairs, i)
-            disp, depth = engine.depths_from_net(out[i], F)
-            loss, aux, depth, outputs = engine.step_loss(pair, disp, depth, maps[i],
-                                                         map_indices[i], knn_init[i],
-                                                         thread_knn, step)
-            term = torch.where(active[i], loss, torch.zeros_like(loss)) if on_device else loss
-            total = term if total is None else total + term
-            held[i] = (pair, depth, loss, aux, outputs)
-        if total is not None:
-            total.backward()
-        norms = _row_norms(state.params) if obs_grads else None
-        self._commit(state, mask)
+        with tracing.phase("step.loss"):
+            for i, engine in enumerate(self.engines):
+                if not flags[i]:
+                    continue
+                pair = pair_of(pairs, i)
+                disp, depth = engine.depths_from_net(out[i], F)
+                loss, aux, depth, outputs = engine.step_loss(pair, disp, depth, maps[i],
+                                                             map_indices[i], knn_init[i],
+                                                             thread_knn, step)
+                term = torch.where(active[i], loss, torch.zeros_like(loss)) if on_device else loss
+                total = term if total is None else total + term
+                held[i] = (pair, depth, loss, aux, outputs)
+        with tracing.phase("step.backward"):
+            if total is not None:
+                total.backward()
+            norms = _row_norms(state.params) if obs_grads else None
+        with tracing.phase("step.optimizer"):
+            self._commit(state, mask)
         metrics, caches = [None] * n, [None] * n
-        for i, h in enumerate(held):
-            if h is not None:
-                pair, depth, loss, aux, outputs = h
-                engine = self.engines[i]
-                caches[i] = aux.pop("_knn_idx", None)
-                metrics[i] = engine.step_metrics(pair, depth, loss, aux)
-                if obs_images:
-                    metrics[i]["debug_images"] = engine._debug_images(pair, depth, outputs)
-                if norms is not None:
-                    metrics[i]["grad_norms"] = dict(zip(state.params, norms[i]))
+        with tracing.phase("step.metrics"):
+            for i, h in enumerate(held):
+                if h is not None:
+                    pair, depth, loss, aux, outputs = h
+                    engine = self.engines[i]
+                    caches[i] = aux.pop("_knn_idx", None)
+                    metrics[i] = engine.step_metrics(pair, depth, loss, aux)
+                    if obs_images:
+                        metrics[i]["debug_images"] = engine._debug_images(pair, depth, outputs)
+                    if norms is not None:
+                        metrics[i]["grad_norms"] = dict(zip(state.params, norms[i]))
         return metrics, caches
 
     def _commit(self, state: ParallelState, mask: Optional[Tensor]) -> None:

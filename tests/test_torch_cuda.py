@@ -915,3 +915,87 @@ def test_batched_program_replays_equal_its_eager_events(card):
                                            err_msg=key)
         np.testing.assert_allclose(x["est_poses"], y["est_poses"], atol=1e-6)
         assert x["map_points"] == y["map_points"]
+
+
+@pytest.mark.cuda
+def test_timestamp_kernel_writes_one_row_per_replay(card):
+    """The program's mark (``utils/tracing.py::stamp``) captured into a CUDA
+    graph between device work: every replay writes the row its device-side
+    event index names, monotone within the row and after the row before."""
+    from e2eslam_tpu_torch.utils import tracing
+
+    E, K = 5, 4
+    stamps = torch.zeros(E, K, dtype=torch.int64, device=card)
+    row = torch.zeros(1, dtype=torch.int64, device=card)
+    x = torch.randn(1024, 1024, device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the eager path loads and launches it first
+        tracing.stamp(stamps, row, 0)
+        y = x @ x
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert int(stamps[0, 0]) > 0
+    stamps.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(K):
+            tracing.stamp(stamps, row, k)
+            y = (y @ x).tanh()
+    for e in range(E):
+        row.fill_(e)
+        graph.replay()
+    torch.cuda.synchronize()
+    st = stamps.cpu()
+    assert (st > 0).all()
+    assert (st[:, 1:] > st[:, :-1]).all()
+    assert (st[1:, 0] > st[:-1, -1]).all()
+
+
+@pytest.mark.cuda
+def test_traced_program_stamps_agree_with_the_cards_clocks(card, monkeypatch):
+    """The program on the card, traced (under the profiler) and not: the
+    untraced run launches no mark; each replayed event of the traced run
+    holds P = 4 + 5R phase times whose sum, its first to last mark, agrees
+    within 1% or 50 us with CUDA events around its replay (each replay
+    queued behind a sleep kernel, so that the events bracket the graph's
+    work and not the host's launch; the graph's first replay, which also
+    uploads it, left out), and the profiler's trace holds every mark's
+    kernel. (The profiler's own device timestamps are not held to the
+    marks: measured on an H100 they ran up to 3.4% fast or slow until the
+    profiler re-synchronised its clock within a session, then agreed
+    within about 1 us; PERF.md §6.)"""
+    from e2eslam_tpu_torch.utils import tracing
+
+    def refuse(*a, **k):
+        raise AssertionError("a mark while no profiler records")
+
+    with monkeypatch.context() as m:
+        m.setattr(tracing, "stamp", refuse)
+        plain = _sequence_runner().run(verbose=False)
+    assert plain["graphs"] == 1 and plain["trace"] is None
+    timed, replay = [], torch.cuda.CUDAGraph.replay
+
+    def timed_replay(graph):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)  # a few ms: the launch lands behind it
+        a.record()
+        replay(graph)
+        b.record()
+        timed.append((a, b))
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", timed_replay)
+    with torch.profiler.profile(activities=acts) as prof:
+        result = _sequence_runner().run(verbose=False)
+    trace = result["trace"]
+    E = len(result["keyframes"])
+    assert trace["replayed"] == [e >= 2 for e in range(E)] and len(timed) == E - 2
+    phase_ms = np.asarray(trace["event_phase_ms"])
+    assert phase_ms.shape == (E, 4 + 5 * 2) and (phase_ms >= 0).all()
+    stamped = phase_ms.sum(axis=1)[3:]
+    events = np.asarray([a.elapsed_time(b) for a, b in timed[1:]])
+    assert (np.abs(events - stamped) <= np.maximum(0.05, 0.01 * stamped)).all(), (events, stamped)
+    marks = [n for _, _, n in tracing.device_intervals(prof.events())
+             if n == tracing.TIMESTAMP_KERNEL]
+    assert len(marks) == E * (4 + 5 * 2 + 1)

@@ -21,7 +21,9 @@ per-keyframe loop with the scalar log and ``E2ESLAM_DEBUG_BUCKET``.
     event 1's: a bias's norm is a sum that cancels), the rest finite;
   * the debug images: the same PNG names;
   * the trace: a file under ``VIZ.profile_dir`` that parses as JSON, holds
-    an ``aten::`` convolution event and is the result's ``profile_trace``;
+    an ``aten::`` convolution event and the program's spans, and is the
+    result's ``profile_trace``; the result's ``trace`` holds every event's
+    phase times;
   * the final map: ``{plot_path}/{name}_map.ply`` with min(map points,
     200,000) vertices, byte for byte the JAX export of the same map;
   * the ``[bucket]`` lines: one for each keyframe the JAX loop prints one
@@ -178,7 +180,14 @@ def test_trace_file(runs):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::conv") for n in names)
+    assert {"e2eslam.program.eager_event", "e2eslam.step.loss", "e2eslam.event.fusion"} <= names
     assert runs["loop"]["profile_trace"] is None
+    # The program's phase timestamps: every event, P = 4 + 5R phases each.
+    R, E = BASE["OPTIMIZATION.refinement_steps"], len(runs["program"]["keyframes"])
+    phase_ms = np.asarray(runs["program"]["trace"]["event_phase_ms"])
+    assert len(runs["program"]["trace"]["phases"]) == 4 + 5 * R
+    assert phase_ms.shape == (E, 4 + 5 * R) and np.isfinite(phase_ms).all()
+    assert runs["loop"]["trace"] is None
 
 
 def test_final_map_ply(runs, tmp_path):
