@@ -14,10 +14,17 @@ Phases (any failure ends the script with a non-zero exit):
               unseeded warm call whose every list is full), and the
               dispatcher's distances against a float64 oracle; every call of
               at most RES_MAX_ROWS ref rows must take the resident kernel;
+     fusion   scatter PointFusion at default-seq60's shapes (a 320x256 frame
+              into 4,915,200 rows, 1.5M and 3M of them valid): the CUDA
+              kernels' fusion against the plain path's on the same inputs
+              (equal counts, winners and appended rows, merged rows within
+              1e-6, every other row's bytes kept), then the map-sized pass
+              timed both ways beside its bound, and the whole fusion step;
   4. main     online adaptation from configs/config.yaml at full width
               (320x256, ResNet-18, 3 refine steps, brute three3d), only
               DEMO.sequence_length cut, with every kernel launch counted and
-              the largest call of each kernel kept; those calls are then held
+              the largest call of each kernel kept (and the fusion kernel's
+              launches, one or more a keyframe); those calls are then held
               against the plain versions and timed; no warm call may take the
               dense kernel; on the largest resident call, the resident
               kernel's options (box size, shares of a list) are timed and
@@ -203,7 +210,7 @@ Phases (any failure ends the script with a non-zero exit):
               and voxel twice the widest gaps of repeated card runs,
               ``python3 chip_smoke.py --small-repeats N [config ...]``, which
               runs only this phase, N times, and reports the gaps).
-``python3 chip_smoke.py --phases icl compact train_depth oft scale
+``python3 chip_smoke.py --phases fusion icl compact train_depth oft scale
 scaling_tools recover demo batched sharded sequence small:icl ...`` runs only the
 named phases
 (after the build), each with its checks, and prints neither the kernels
@@ -641,6 +648,175 @@ def phase_kernels(knn, spatial_sort, stats):
         fail(f"the unseeded warm call launched {sorted(used)}, not the candidate kernel")
 
 
+# default-seq60's scatter fusion: a 320x256 frame into a buffer of 60
+# frames' rows, at two of the counts a unit passes through.
+FUSION_HW = (256, 320)
+FUSION_ROWS = 60 * 256 * 320
+FUSION_COUNTS = (1_500_000, 3_000_000)
+FUSION_REPS = 20
+
+
+def fusion_scene(count, N, seed=21, H=FUSION_HW[0], W=FUSION_HW[1], device="cuda"):
+    """An H x W live frame of a bumpy wall (a patch of invalid depth, a
+    camera pose off the identity) on ``device`` and a map of ``N`` rows
+    with a host count, the first ``count`` valid: 70% near the frame's
+    surface with noisy normals (merges, and failures of both gates), a
+    tenth of those duplicated (ties: the lower row wins), the rest off the
+    surface; zeros past the count."""
+    import numpy as np
+    import torch
+
+    from e2eslam_tpu_torch.slam.fusion import frame_pointcloud
+    from e2eslam_tpu_torch.slam.pointclouds import MapState
+    from e2eslam_tpu_torch.slam.rgbd import build_frame
+
+    rng = np.random.default_rng(seed)
+    f = 0.8 * W
+    K4 = torch.tensor([[f, 0, W / 2, 0], [0, f, H / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    depth = 2.0 + 1.28 * xs / W + 0.1 * np.sin(12.8 * ys / H) + 0.002 * rng.normal(size=(H, W))
+    depth[H // 12:H // 4, W // 8:W // 3] = 0.0
+    c, s = np.cos(0.1), np.sin(0.1)
+    pose = np.array([[c, 0, s, 0.1], [0, 1, 0, -0.05], [-s, 0, c, 0.2], [0, 0, 0, 1]])
+    dev = torch.device(device)
+    frame = build_frame(torch.from_numpy(rng.random((H, W, 3)).astype(np.float32)).to(dev),
+                        torch.from_numpy(depth[..., None].astype(np.float32)).to(dev),
+                        K4.to(dev), torch.from_numpy(pose.astype(np.float32)).to(dev))
+    live = frame_pointcloud(frame)
+    pts, nrm = live.points.cpu().numpy(), live.normals.cpu().numpy()
+    valid = np.flatnonzero(live.mask.cpu().numpy() > 0)
+    data = np.zeros((N, 16), np.float32)
+    near = int(0.7 * count)
+    px = rng.choice(valid, near)
+    data[:near, 0:3] = pts[px] + 0.02 * rng.normal(size=(near, 3))
+    n = nrm[px] + 0.25 * rng.normal(size=(near, 3))
+    data[:near, 3:6] = n / np.linalg.norm(n, axis=1, keepdims=True)
+    dup = rng.choice(near, near // 10) if near else np.zeros(0, np.int64)
+    data[near:near + dup.size] = data[dup]
+    rest = count - near - dup.size
+    data[near + dup.size:count, 0:3] = pts[rng.choice(valid, rest)] + rng.normal(size=(rest, 3))
+    n = rng.normal(size=(rest, 3))
+    data[near + dup.size:count, 3:6] = n / np.linalg.norm(n, axis=1, keepdims=True)
+    data[:count, 6:9] = rng.random((count, 3))
+    data[:count, 9] = rng.uniform(0.5, 3.0, count)
+    return MapState(data=torch.from_numpy(data).to(dev), count=count), frame
+
+
+def fusion_gaps(before, kern, plain) -> dict:
+    """The kernel path's fusion against the plain path's on the same inputs:
+    counts, the rows that won on one path only (their confidence changed),
+    the appended rows, whether the rows past the count stayed zeros, the
+    largest gap of a merged row, whether the kernel kept every other row's
+    bytes, and the largest gap of those rows' normals to the plain path's
+    renormalised ones, in ulps."""
+    import torch
+
+    cb, ck, cp = int(before.count), int(kern.count), int(plain.count)
+    b, k, p = before.data, kern.data, plain.data
+    won_k, won_p = k[:cb, 9] != b[:cb, 9], p[:cb, 9] != b[:cb, 9]
+    out = {"count": ck, "plain_count": cp, "merged": int(won_k.sum()), "appended": ck - cb,
+           "rows_differ": int((won_k ^ won_p).sum())}
+    both = won_k & won_p
+    out["merged_gap"] = float((k[:cb][both] - p[:cb][both]).abs().max()) if both.any() else 0.0
+    out["appended_equal"] = ck == cp and torch.equal(k[cb:ck], p[cb:cp])
+    out["tail_zero"] = not (k[ck:].any() or p[cp:].any())
+    keep = ~won_k
+    out["kept_bytes"] = torch.equal(k[:cb][keep], b[:cb][keep])
+    kn, pn = k[:cb][keep, 3:6], p[:cb][keep, 3:6]
+    ulp = torch.nextafter(pn.abs(), torch.full_like(pn, float("inf"))) - pn.abs()
+    out["kept_normal_ulps"] = float(((kn - pn).abs() / ulp).max())
+    return out
+
+
+def profile_ms(fn, reps):
+    """Device ms per call of ``fn``, in all and by kernel name (every kernel,
+    memset and copy it launches; torch.profiler, mean over ``reps`` calls),
+    and the call's ms between CUDA events (host enqueue included)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    by = {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us and evt.device_type == torch.autograd.DeviceType.CUDA:
+            by[evt.key] = by.get(evt.key, 0.0) + dev_us / reps / 1e3
+    if not by:
+        fail("the profiler saw no device time")
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return sum(by.values()), by, t0.elapsed_time(t1) / reps
+
+
+def phase_fusion():
+    """Scatter PointFusion at default-seq60's shapes, at FUSION_COUNTS valid
+    rows of FUSION_ROWS: the kernel path (``ops/pointfusion.py``) against
+    the plain path on the same inputs (``fusion_gaps``), then the map-sized
+    pass timed both ways and the kernel path's whole fusion step. The
+    bound: each valid row's first 32-byte sector and 128 bytes a pixel at
+    PEAK_BYTES. Returns the kernel's launches in the checks."""
+    import dataclasses
+
+    import torch
+
+    from e2eslam_tpu_torch.ops.pointfusion import fusion_kernel
+    from e2eslam_tpu_torch.slam import fusion
+    from e2eslam_tpu_torch.slam.pointclouds import on_device
+
+    H, W = FUSION_HW
+    launches, stats = 0, []
+    for count in FUSION_COUNTS:
+        m, frame = fusion_scene(count, FUSION_ROWS)
+        m = on_device(m)
+        n0 = fusion_kernel.launches
+        with torch.no_grad():
+            kern = fusion.pointfusion_step(dataclasses.replace(m, data=m.data.clone()), frame)
+            plain = fusion._pointfusion_step(m, frame, 0.05, 20.0, 0.6, None, None,
+                                             inplace=False)
+        launches += fusion_kernel.launches - n0
+        gaps = fusion_gaps(m, kern, plain)
+        del kern, plain
+        live = fusion.frame_pointcloud(frame)
+        alpha = fusion._pixel_alpha(H, W, frame.intrinsics, 0.6) * live.mask
+        args = (frame, live, alpha, 0.05, 20.0, None, None)
+        work = dataclasses.replace(m, data=m.data.clone())
+        with torch.no_grad():
+            pass_ms, by, pass_call_ms = profile_ms(lambda: fusion._merge_kernel(work, *args),
+                                                   FUSION_REPS)
+            plain_ms, _, plain_call_ms = profile_ms(
+                lambda: fusion._merge_plain(work, *args, inplace=True), FUSION_REPS)
+            step_ms, _, step_call_ms = profile_ms(lambda: fusion.pointfusion_step(work, frame),
+                                                  FUSION_REPS)
+        assoc = sum(v for k, v in by.items() if "pointfusion_associate" in k)
+        merge = sum(v for k, v in by.items() if "pointfusion_merge" in k)
+        bound_ms = (count * 32 + H * W * 128) / PEAK_BYTES * 1e3
+        line = {"phase": "fusion", "rows": FUSION_ROWS, "hw": H * W, **gaps,
+                "kernel_ms": assoc + merge, "associate_ms": assoc, "merge_ms": merge,
+                "pass_ms": pass_ms, "pass_call_ms": pass_call_ms, "plain_pass_ms": plain_ms,
+                "plain_pass_call_ms": plain_call_ms, "step_ms": step_ms,
+                "step_call_ms": step_call_ms, "bound_ms": bound_ms,
+                "share": bound_ms / (assoc + merge), "pass_ops": by}
+        print(json.dumps(line), flush=True)
+        stats.append(line)
+        if gaps["count"] != gaps["plain_count"] or gaps["rows_differ"] or not (
+                gaps["appended_equal"] and gaps["tail_zero"] and gaps["kept_bytes"]) or (
+                gaps["merged_gap"] > 1e-6 or gaps["kept_normal_ulps"] > 2):
+            fail(f"the fusion kernel parts from the plain path at count {count}: {gaps}")
+    if launches != len(FUSION_COUNTS):
+        fail(f"the fusion kernel launched {launches} times for {len(FUSION_COUNTS)} calls")
+    return launches, stats
+
+
 def phase_main(knn, stats):
     import torch
 
@@ -650,12 +826,16 @@ def phase_main(knn, stats):
     cfg = load_yaml(default_config_path())
     cfg.DEMO.sequence_length = 12  # the only cut: ~10 keyframes
     runner = keyframe_loop(OnlineAdaptation(cfg))  # CUDA: the entry point's default
+    from e2eslam_tpu_torch.ops.pointfusion import fusion_kernel
+
     for k in knn.KERNELS:
         k.launches = 0
+    fusions = fusion_kernel.launches
     torch.cuda.reset_peak_memory_stats()
     with Recorder(knn) as rec:
         result = runner.run(verbose=False)
     launches = launch_counts(knn)
+    fusions = fusion_kernel.launches - fusions
     for i, (frame, m) in enumerate(zip(result["keyframes"], result["metrics"])):
         print(json.dumps({"phase": "main", "keyframe": i, "frame": frame,
                           "loss": m["total_loss"], "photometric": m["photometric"],
@@ -665,8 +845,10 @@ def phase_main(knn, stats):
                "mean_abs_rel": result["mean_abs_rel"], "elapsed_s": result["elapsed_s"],
                "steps_per_sec": result["steps_per_sec"],
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "launches": launches, "capacity": runner.capacity}
+               "launches": launches, "fusion_launches": fusions, "capacity": runner.capacity}
     print(json.dumps(summary), flush=True)
+    if fusions < result["num_keyframes"]:
+        fail(f"{fusions} fusion kernel launches for {result['num_keyframes']} keyframes")
     losses = [m["total_loss"] for m in result["metrics"]]
     if not result["metrics"] or not all(map(_finite, losses)):
         fail(f"non-finite or missing losses: {losses}")
@@ -3543,8 +3725,8 @@ def small_repeats(n, names, knn=None, smi=None):
 
 
 def run_phases(knn, names, smi):
-    """Only the named phases (``icl``, ``compact``, ``train_depth``, ``oft``,
-    ``scale``, ``scaling_tools``, ``recover``, ``demo``, ``batched``,
+    """Only the named phases (``fusion``, ``icl``, ``compact``, ``train_depth``,
+    ``oft``, ``scale``, ``scaling_tools``, ``recover``, ``demo``, ``batched``,
     ``sharded``, ``sequence``, ``optimizers``, ``batched_program``,
     ``observability``, ``small:CONFIG``),
     each checked as in the full run; no kernels line and no result line."""
@@ -3556,7 +3738,9 @@ def run_phases(knn, names, smi):
                "recover": lambda: phase_recover(knn, stats, smi),
                "demo": lambda: phase_demo(knn, smi)}
     for name in names:
-        if name == "batched":
+        if name == "fusion":
+            phase_fusion()
+        elif name == "batched":
             phase_batched(knn, stats, smi)
         elif name == "sharded":
             phase_sharded(knn, stats)
@@ -3647,8 +3831,9 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
     stats = {}
     # 3. kernels
     phase_kernels(knn, spatial_sort, stats)
-    # 4. main path
-    launches, _ = phase_main(knn, stats)
+    # 4. scatter fusion at default-seq60's shapes, then the main path
+    _, fusion_stats = phase_fusion()
+    launches, main = phase_main(knn, stats)
     # 5. the exact chamfer at map scale
     chamfer_launches, _ = phase_chamfer(knn, stats)
     # 6. the loss family, two networks
@@ -3725,6 +3910,13 @@ def _all_phases(knn, spatial_sort, smi, name, t0) -> int:
                         "visit_max": st.get("visit_max"), "visit_mean": st.get("visit_mean"),
                         "check_launches": st.get("check_launches", 0),
                         "cdist_ms": st.get("cdist_ms")})
+    for st in fusion_stats:
+        kernels.append({"name": "pointfusion", "call": f"fusion of {st['count']} rows",
+                        "route": "cuda", "source": "e2eslam_tpu_torch/ops/csrc/pointfusion.cu",
+                        "replaces": None, "launches": main["fusion_launches"],
+                        "ms": st["pass_ms"], "kernel_ms": st["kernel_ms"],
+                        "plain_ms": st["plain_pass_ms"], "bound_ms": st["bound_ms"],
+                        "bound_by": "bytes", "call_ms": st["pass_call_ms"]})
     print(json.dumps({"phase": "done", "seconds": time.perf_counter() - t0}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

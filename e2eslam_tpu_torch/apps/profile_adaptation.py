@@ -91,6 +91,7 @@ from e2eslam_tpu_torch.utils import tracing
 # elementwise) serve several; the program's phase times place them.
 FAMILIES = (
     ("knn kernels", ("knn_",)),
+    ("fusion kernels", ("pointfusion_",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
                               "fprop", "winograd", "cutlass")),
 )

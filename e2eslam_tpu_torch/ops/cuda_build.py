@@ -18,7 +18,7 @@ import time
 from typing import Dict
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = {"knn": os.path.join(_HERE, "csrc", "knn.cu")}
+SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu") for name in ("knn", "pointfusion")}
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -16,6 +16,10 @@ gradslam's PointFusion step (the reference's ``models["SLAM"].step``,
   5. live pixels no winner claimed are appended at the ``count`` cursor.
 
 With an active window only the newest map rows take part in steps 1-4.
+On a card, steps 1-4 of an in-place fusion are the CUDA kernels of
+``ops/pointfusion.py`` (one 64-bit atomic-min per similar row on a key of
+(distance bits, row): the closest row, then the lowest), which visit only
+the candidate rows; ``_merge_plain`` is their plain version.
 ``projective_nn``, the projective 3D loss's association, runs steps 1-3
 with no gates.
 
@@ -48,6 +52,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from e2eslam_tpu_torch.core.se3 import se3_inverse, transform_points
+from e2eslam_tpu_torch.ops.pointfusion import fusion_kernel
 from e2eslam_tpu_torch.slam.pointclouds import MapState, pack_rows
 from e2eslam_tpu_torch.slam.rgbd import RGBDFrame
 
@@ -143,6 +148,18 @@ def _associate(state: MapState, frame: RGBDFrame, live: FramePoints, *,
         n_live = live.normals[pix]
         similar = similar & ((state.normals * n_live).sum(dim=-1) > _cos_deg(angle_th))
 
+    best_idx, winner = _rank(pix, dist, similar, HW)
+    return pix, best_idx, winner, v_live, n_live
+
+
+def _rank(pix: Tensor, dist: Tensor, similar: Tensor, HW: int):
+    """Each pixel's winner among the similar rows that land on it: the
+    closest, then the lowest row (a scatter-min on distance, then one on the
+    rows at that distance). Returns (best_idx [HW], ``N`` where none;
+    winner [N])."""
+    N = pix.shape[0]
+    dev = pix.device
+    rows = torch.arange(N, device=dev)
     dist_m = torch.where(similar, dist, float("inf"))
     best_dist = torch.full((HW,), float("inf"), device=dev).scatter_reduce(
         0, pix, dist_m, "amin", include_self=True)
@@ -150,8 +167,7 @@ def _associate(state: MapState, frame: RGBDFrame, live: FramePoints, *,
     idx_m = torch.where(is_best, rows, torch.full_like(rows, N))
     best_idx = torch.full((HW,), N, dtype=torch.int64, device=dev).scatter_reduce(
         0, pix, idx_m, "amin", include_self=True)
-    winner = is_best & (rows == best_idx[pix])
-    return pix, best_idx, winner, v_live, n_live
+    return best_idx, is_best & (rows == best_idx[pix])
 
 
 def count_add(count, added: Tensor, capacity: int):
@@ -178,22 +194,27 @@ def _write_rows(data: Tensor, tgt: Tensor, rows: Tensor, writes: Tensor) -> None
                      torch.where(writes[:, None], rows, sink_row))
 
 
+def _window_start(count, N: int, window: int):
+    """The first row of the newest ``window`` rows: ``clip(count - window, 0,
+    max(N - window, 0))``, a python int for a host count, a 0-d tensor for a
+    device one."""
+    if isinstance(count, Tensor):
+        return (count - window).clamp(min=0, max=max(N - window, 0))
+    return min(max(count - window, 0), max(N - window, 0))
+
+
 def _window_view(state: MapState, window: int):
     """The newest ``window`` rows of the map as a map of their own
     (``e2eslam_tpu/slam/fusion.py:121-138``): association and fusion then
-    cost O(window) whatever the map's size. The start is ``clip(count -
-    window, 0, max(N - window, 0))``: for a host count a python int and the
-    window a slice of the buffer; for a device count a 0-d tensor and the
-    window a gather of the rows ``start + arange(window)`` (no host read;
-    fusion writes them back). Returns (start, the rows gathered or None,
-    sub-map)."""
-    N = state.data.shape[0]
+    cost O(window) whatever the map's size. The start is ``_window_start``:
+    for a host count the window is a slice of the buffer; for a device count
+    a gather of the rows ``start + arange(window)`` (no host read; fusion
+    writes them back). Returns (start, the rows gathered or None, sub-map)."""
+    start = _window_start(state.count, state.data.shape[0], window)
     if isinstance(state.count, Tensor):
-        start = (state.count - window).clamp(min=0, max=max(N - window, 0))
         rows = start + torch.arange(window, device=state.data.device)
         return start, rows, MapState(data=state.data.index_select(0, rows),
                                      count=(state.count - start).clamp(max=window))
-    start = min(max(state.count - window, 0), max(N - window, 0))
     return start, None, MapState(data=state.data[start:start + window],
                                  count=min(state.count - start, window))
 
@@ -230,6 +251,14 @@ def pointfusion_step(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05
     new count), or out of place when it carries autograd (``_tracks_grad``).
     Returns the new state.
 
+    The map-sized pass (association and the fusion of the winners) runs as
+    the CUDA kernels of ``ops/pointfusion.py`` for an in-place call on a
+    card, which visit only the candidate rows and read the count on the
+    device; as ``_merge_plain`` on the CPU and for a call that carries
+    autograd. The two fuse the same winners with the same arithmetic; the
+    plain version also renormalises the other rows' normals (by at most two
+    ulps for a unit normal), which the kernels leave as they are.
+
     ``active_window`` W (``e2eslam_tpu/slam/fusion.py:415-440``): only the
     newest W rows are association and fusion candidates; their fused rows
     are written back first, then the appends land in the full buffer.
@@ -249,12 +278,59 @@ def pointfusion_step(state: MapState, frame: RGBDFrame, *, dist_th: float = 0.05
 def _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, active, *,
                       inplace):
     H, W = frame.depth.shape[:2]
-    HW = H * W
+    N = state.data.shape[0]
+    live = frame_pointcloud(frame)
+    alpha = _pixel_alpha(H, W, frame.intrinsics, sigma) * live.mask
+    if inplace and state.data.is_cuda:
+        data = state.data
+        claimed = _merge_kernel(state, frame, live, alpha, dist_th, angle_th, active_window,
+                                active)
+    else:
+        data, claimed = _merge_plain(state, frame, live, alpha, dist_th, angle_th,
+                                     active_window, active, inplace=inplace)
+
+    # ---- append the live pixels no winner claimed -----------------------
+    new_mask = (live.mask > 0) & ~claimed
+    if active is not None:
+        new_mask = new_mask & active
+    order = torch.cumsum(new_mask.to(torch.int64), 0) - 1
+    dest = state.count + order
+    ok = new_mask & (dest < N)
+    live_rows = pack_rows(live.points, live.normals, live.colors, alpha)
+    if inplace:
+        _write_rows(data, dest, live_rows, ok)
+    else:
+        data = data.index_put((dest[ok],), live_rows[ok])
+    return dataclasses.replace(state, data=data, count=count_add(state.count, new_mask.sum(), N))
+
+
+def _merge_kernel(state, frame, live, alpha, dist_th, angle_th, active_window, active):
+    """``_merge_plain``'s association and fusion of the winners through
+    ``ops/pointfusion.py::fusion_kernel``, in place on a card. Returns
+    ``claimed`` [HW] bool."""
+    H, W = frame.depth.shape[:2]
+    N = state.data.shape[0]
+    window = N if active_window is None or active_window >= N else int(active_window)
+    start = 0 if window == N else _window_start(state.count, N, window)
+    K = frame.intrinsics
+    params = torch.cat([se3_inverse(frame.pose)[:3].reshape(12), K[0, 0:1], K[1, 1:2],
+                        K[0, 2:3], K[1, 2:3]]).float()
+    return fusion_kernel(state.data, state.count, start, window, params,
+                         *(t.contiguous() for t in (live.points, live.normals, live.colors,
+                                                    live.mask, alpha)),
+                         active, H, W, dist_th, None if angle_th is None else _cos_deg(angle_th))
+
+
+def _merge_plain(state, frame, live, alpha, dist_th, angle_th, active_window, active, *,
+                 inplace):
+    """Association (``_associate``) and the confidence-weighted fusion of
+    each pixel's winner, over the whole buffer in plain PyTorch (the CUDA
+    kernels' plain version). Returns (the map's buffer, in place or new;
+    ``claimed`` [HW] bool, the pixels a row won)."""
+    HW = live.mask.shape[0]
     N = state.data.shape[0]
     windowed = active_window is not None and active_window < N
     start, rows, sub = _window_view(state, int(active_window)) if windowed else (0, None, state)
-    live = frame_pointcloud(frame)
-    alpha = _pixel_alpha(H, W, frame.intrinsics, sigma) * live.mask
 
     pix, _, winner, v_live, n_live = _associate(
         sub, frame, live, dist_th=dist_th, angle_th=angle_th)
@@ -299,22 +375,9 @@ def _pointfusion_step(state, frame, dist_th, angle_th, sigma, active_window, act
                           state.data[start + sub_rows.shape[0]:]])
     else:
         data = sub_rows
-
-    # ---- append the live pixels no winner claimed -----------------------
     claimed = torch.zeros(HW, dtype=torch.int64, device=pix.device).scatter_reduce(
         0, pix, winner.to(torch.int64), "amax", include_self=True)
-    new_mask = (live.mask > 0) & (claimed == 0)
-    if active is not None:
-        new_mask = new_mask & active
-    order = torch.cumsum(new_mask.to(torch.int64), 0) - 1
-    dest = state.count + order
-    ok = new_mask & (dest < N)
-    live_rows = pack_rows(live.points, live.normals, live.colors, alpha)
-    if inplace:
-        _write_rows(data, dest, live_rows, ok)
-    else:
-        data = data.index_put((dest[ok],), live_rows[ok])
-    return dataclasses.replace(state, data=data, count=count_add(state.count, new_mask.sum(), N))
+    return data, claimed > 0
 
 
 def _lookup(image: Tensor, pose: Tensor, live: FramePoints, frame: RGBDFrame):

@@ -17,6 +17,8 @@ bound at most.
 
 import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -427,6 +429,176 @@ def test_index_fusion_on_the_card_matches_the_cpu(card):
     assert torch.equal(a.index_image.cpu(), c.index_image)
     assert bool((a.index_image < 64).sum() > 3000)  # most pixels merged
     torch.testing.assert_close(a.data.cpu()[: a.count], c.data[: c.count], rtol=0, atol=1e-6)
+
+
+def _fusion_inputs(device, count, N, seed=11):
+    """``chip_smoke.fusion_scene`` at 64x48: a live frame and a map of ``N``
+    rows, the first ``count`` valid (merges, gate failures, exact ties)."""
+    from chip_smoke import fusion_scene
+
+    return fusion_scene(count, N, seed, H=48, W=64, device=device)
+
+
+def _plain_fusion(m, frame, **kw):
+    """The plain PyTorch path on the same card tensors (the functional
+    form: the in-place call on a card takes the kernels)."""
+    from e2eslam_tpu_torch.slam import fusion
+
+    kw = {"dist_th": 0.05, "angle_th": 20.0, "sigma": 0.6, "active_window": None,
+          "active": None, **kw}
+    with torch.no_grad():
+        return fusion._pointfusion_step(m, frame, kw["dist_th"], kw["angle_th"], kw["sigma"],
+                                        kw["active_window"], kw["active"], inplace=False)
+
+
+def _fusion_gaps(before, kern, plain):
+    """Kernel against plain on one fusion (``chip_smoke.fusion_gaps``): the
+    count, the winner set (the rows whose confidence changed), the appended
+    rows and the zeros past the count equal; merged rows within 1e-6; every
+    other row's bytes kept by the kernel and within two ulps of the plain
+    path's renormalised normal (renormalising a float32 unit normal moves a
+    component by up to two ulps: seen at 3M rows in the fusion phase of
+    ``chip_smoke.py``). Returns (rows merged, rows appended)."""
+    from chip_smoke import fusion_gaps
+
+    g = fusion_gaps(before, kern, plain)
+    assert g["count"] == g["plain_count"] and g["rows_differ"] == 0, g
+    assert g["appended_equal"] and g["tail_zero"] and g["kept_bytes"], g
+    assert g["merged_gap"] <= 1e-6 and g["kept_normal_ulps"] <= 2, g
+    return g["merged"], g["appended"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["host_count", "device_count", "count_far_below_n"])
+def test_fusion_kernel_matches_the_plain_path(card, where):
+    """The CUDA fusion kernels (``ops/pointfusion.py``) against the plain
+    path on the same card inputs: ties and merges on a small map with a
+    host count, the same with a device count, and a count far below the
+    buffer's rows; each call launches once."""
+    from e2eslam_tpu_torch.ops.pointfusion import fusion_kernel
+    from e2eslam_tpu_torch.slam.fusion import pointfusion_step
+    from e2eslam_tpu_torch.slam.pointclouds import on_device
+
+    HW = 48 * 64
+    count, N = (HW // 2, 40 * HW) if where == "count_far_below_n" else (2 * HW, 4 * HW)
+    m, frame = _fusion_inputs(card, count, N)
+    if where != "host_count":
+        m = on_device(m)
+    before = fusion_kernel.launches
+    with torch.no_grad():
+        kern = pointfusion_step(dataclasses.replace(m, data=m.data.clone()), frame)
+    assert fusion_kernel.launches == before + 1
+    plain = _plain_fusion(m, frame)
+    assert fusion_kernel.launches == before + 1
+    merged, appended = _fusion_gaps(m, kern, plain)
+    assert merged > 200 and appended > 200
+    assert isinstance(kern.count, torch.Tensor) == (where != "host_count")
+
+
+@pytest.mark.cuda
+def test_fusion_kernel_leaves_an_inactive_map_as_it_was(card):
+    """``active`` False: the map's bytes and count come out unchanged and
+    nothing is read to the host; True: the plain path's result."""
+    from e2eslam_tpu_torch.slam.fusion import pointfusion_step
+    from e2eslam_tpu_torch.slam.pointclouds import on_device
+
+    m, frame = _fusion_inputs(card, 2 * 48 * 64, 4 * 48 * 64)
+    m = on_device(m)
+    for flag in (False, True):
+        active = torch.full((), flag, dtype=torch.bool, device=card)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                kern = pointfusion_step(dataclasses.replace(m, data=m.data.clone()), frame,
+                                        active=active)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not flag:
+            assert torch.equal(kern.data, m.data) and int(kern.count) == int(m.count)
+        else:
+            _fusion_gaps(m, kern, _plain_fusion(m, frame, active=active))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_count", [False, True])
+def test_fusion_kernel_with_an_active_window(card, device_count):
+    """An active window of the newest rows, its start read on the host or
+    on the card: the same fusion as the plain path's window."""
+    from e2eslam_tpu_torch.slam.fusion import pointfusion_step
+    from e2eslam_tpu_torch.slam.pointclouds import on_device
+
+    HW = 48 * 64
+    m, frame = _fusion_inputs(card, 2 * HW, 4 * HW, seed=12)
+    if device_count:
+        m = on_device(m)
+    for window in (HW, 3 * HW):  # inside the valid rows; reaching past the count
+        with torch.no_grad():
+            kern = pointfusion_step(dataclasses.replace(m, data=m.data.clone()), frame,
+                                    active_window=window)
+        merged, _ = _fusion_gaps(m, kern, _plain_fusion(m, frame, active_window=window))
+        assert merged > 100
+        won = (kern.data[:2 * HW, 9] != m.data[:2 * HW, 9]).nonzero()
+        assert int(won.min()) >= 2 * HW - window
+
+
+@pytest.mark.cuda
+def test_fusion_kernel_raises_on_card_tensors_it_cannot_take(card):
+    """An in-place fusion on a card launches the kernels or raises (here a
+    float64 map); it never runs the plain path instead."""
+    from e2eslam_tpu_torch.ops.pointfusion import fusion_kernel
+    from e2eslam_tpu_torch.slam.fusion import pointfusion_step
+
+    m, frame = _fusion_inputs(card, 2 * 48 * 64, 4 * 48 * 64)
+    before = fusion_kernel.launches
+    with pytest.raises(ValueError), torch.no_grad():
+        pointfusion_step(dataclasses.replace(m, data=m.data.double()), frame)
+    assert fusion_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_captured_fusion_kernel_replays_the_eager_call(card):
+    """The fusion kernels captured in a CUDA graph with a device count:
+    each replay equals the eager call from the same map, follows the count
+    the previous replay left, and neither makes a host synchronisation."""
+    from e2eslam_tpu_torch.slam.fusion import pointfusion_step
+    from e2eslam_tpu_torch.slam.pointclouds import on_device
+
+    HW = 48 * 64
+    m, frame = _fusion_inputs(card, 2 * HW, 5 * HW, seed=13)
+    m = on_device(m)
+    _, frame2 = _fusion_inputs(card, 1, 5 * HW, seed=14)
+    eager = [dataclasses.replace(m, data=m.data.clone())]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            for f in (frame, frame2):
+                eager.append(pointfusion_step(dataclasses.replace(
+                    eager[-1], data=eager[-1].data.clone()), f))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    live = dataclasses.replace(m, data=m.data.clone(), count=m.count.clone())
+    inputs = [t.clone() for t in (frame.vertices, frame.normals, frame.color, frame.depth,
+                                  frame.valid, frame.pose)]
+    static = frame._replace(vertices=inputs[0], normals=inputs[1], color=inputs[2],
+                            depth=inputs[3], valid=inputs[4], pose=inputs[5])
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        out = pointfusion_step(live, static)
+        live.count.copy_(out.count)
+    for i, f in enumerate((frame, frame2)):
+        for t, src in zip(inputs, (f.vertices, f.normals, f.color, f.depth, f.valid, f.pose)):
+            t.copy_(src)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert int(live.count) == int(eager[i + 1].count)
+        assert torch.equal(live.data, eager[i + 1].data)
 
 
 def _icp_inputs(device, n_live=4096):

@@ -243,3 +243,60 @@ def test_projective_nn_matches_jax_and_window_indices_are_global(seq):
 def test_map_state_views():
     m = MapState(data=torch.arange(32.0).reshape(2, 16), count=1)
     assert m.points.shape == (2, 3) and m.confidence.tolist() == [9.0, 25.0]
+
+
+def _key_winners(pix, dist, similar, HW):
+    """Each pixel's winning row by the CUDA fusion kernel's rule: one min
+    over ``(float bits of dist << 32) | row`` (``ops/csrc/pointfusion.cu``;
+    the kernel's unsigned all-ones "none" is int64's largest value here)."""
+    rows = torch.arange(pix.shape[0], dtype=torch.int64)
+    key = (dist.view(torch.int32).to(torch.int64) << 32) | rows
+    empty = torch.iinfo(torch.int64).max
+    key = torch.where(similar, key, torch.full_like(key, empty))
+    best = torch.full((HW,), empty, dtype=torch.int64).scatter_reduce(0, pix, key, "amin")
+    return torch.where(best == empty, torch.full_like(best, pix.shape[0]),
+                       best & 0xFFFFFFFF)
+
+
+def _key_case(case, rng):
+    """(pix, dist, similar, HW) of a ranking case: many rows on few pixels."""
+    n, HW, count = 4000, 64, 3000
+    pix = torch.from_numpy(rng.integers(0, HW, n))
+    # Few distinct values, so equal distances share pixels.
+    dist = torch.from_numpy(rng.choice(np.float32([0.0, 0.01, 0.02, 0.02001, 0.04]), n))
+    similar = torch.from_numpy(rng.random(n) < 0.7)
+    if case == "inf":
+        dist = torch.where(torch.from_numpy(rng.random(n) < 0.5), float("inf"), dist)
+    elif case == "subnormal":
+        tiny = np.float32([1e-45, 2e-45, 1e-40, 1.1754942e-38, 1.17549435e-38])
+        dist = torch.from_numpy(rng.choice(tiny, n))
+        assert bool((dist < 1.17549435e-38).any())  # subnormals among them
+    elif case == "past_count":
+        # The buffer's rows past the count are zeros: distance 0, all on one
+        # clamped pixel, never similar.
+        rows = torch.arange(n)
+        pix = torch.where(rows < count, pix, 0)
+        dist = torch.where(rows < count, dist, 0.0)
+        similar = similar & (rows < count)
+    return pix, dist.float(), similar, HW
+
+
+@pytest.mark.parametrize("case", ["ties", "inf", "subnormal", "past_count"])
+def test_fusion_kernel_key_picks_the_plain_winners(case):
+    """The CUDA fusion kernel ranks a pixel's similar rows with a single
+    64-bit min over (distance bits, row): for non-negative floats the bit
+    order is the value order, so it picks ``_rank``'s winner (the closest
+    row, then the lowest), whatever the order of the atomics."""
+    from e2eslam_tpu_torch.slam.fusion import _rank
+
+    pix, dist, similar, HW = _key_case(case, np.random.default_rng(5))
+    best_idx, winner = _rank(pix, dist, similar, HW)
+    np.testing.assert_array_equal(_key_winners(pix, dist, similar, HW).numpy(),
+                                  best_idx.numpy())
+    assert int(winner.sum()) == int((best_idx < pix.shape[0]).sum()) > 0
+    # Ties were there to break: a pixel whose closest distance two similar
+    # rows share.
+    best_d = torch.where(best_idx < pix.shape[0], dist[best_idx.clamp(max=pix.shape[0] - 1)],
+                         float("nan"))
+    tied = similar & (dist == best_d[pix])
+    assert int(torch.bincount(pix[tied], minlength=HW).max()) > 1
