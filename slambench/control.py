@@ -30,14 +30,13 @@ if sys.path and os.path.abspath(sys.path[0]) == HERE:
 import torch  # noqa: E402
 
 from slambench import check, faults, traffic  # noqa: E402
-from slambench.run import Runner, load_cell  # noqa: E402
-from slambench.weights import seeded_weights  # noqa: E402
+from slambench.run import Runner, load_cell, network_weights  # noqa: E402
 
 
 def prepare(cell, conf, device):
     """(pool, weights, runner) as a run of the cell sets them up."""
     pool = traffic.render_pool(cell, conf["config"], device)
-    weights = seeded_weights(int(cell["weights_seed"]), device)
+    weights = network_weights(cell, conf, device)
     return pool, weights, Runner(cell, conf, pool, weights, device)
 
 

@@ -1,7 +1,8 @@
 """Model FLOPs of the traced units' events over the traced span and the
-card's peak in the network's compute dtype, in percent
-(``reference/online_pft.py::flops_per_event``: per event R forward and
-backward passes and one forward for fusion, two frames each)."""
+card's peak in the network's compute dtype, in percent (the configuration's
+reference module's ``flops_per_event``, ``reference/__init__.py``: per
+event R forward and backward passes and one forward for fusion, two frames
+each)."""
 
 LAYER = "step (engine.refine)"
 UNIT = "%"

@@ -6,11 +6,14 @@
 ``slambench/configs/``, its traffic: frames, sequences per unit, pool,
 trajectory; the limits of its output check). Set-up renders the cell's
 pool of sequences on the card (``traffic.py``), makes the cell's seeded
-weights on the card (``weights.py``) and runs one warm-up unit of the
-cell's own shapes; the seed sets the order in which the window takes the
-pool's units and which units keep their final state for the check. The
-window then runs units back to back, each through the public entry point a
-user calls, from the seeded weights, a fresh runner and a fresh map:
+weights on the card (``weights.py``: the tensors of the configuration's
+reference module's ``network_shapes()``), loads them into the port's
+network that ``MODEL.depth_network`` and ``MODEL.num_layers`` name, and
+runs one warm-up unit of the cell's own shapes; the seed sets the order in
+which the window takes the pool's units and which units keep their final
+state for the check. The window then runs units back to back, each through
+the public entry point a user calls, from the seeded weights, a fresh
+runner and a fresh map:
 ``OnlineAdaptation(cfg, dataset=..., model=...).run()`` (one sequence; the
 whole-sequence program) or ``ParallelAdaptation(...).run(...,
 dispatch="whole")`` (``n_seq`` sequences; the program over them). It closes
@@ -69,7 +72,6 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from slambench import check, record, traffic  # noqa: E402
-from slambench.reference.online_pft import keyframe_schedule  # noqa: E402
 from slambench.weights import seeded_weights  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "e2eslam_tpu")
@@ -129,25 +131,59 @@ class SequenceData:
         return self._item
 
 
+def network_weights(cell, conf, device):
+    """The cell's seeded weights: the tensors of the configuration's
+    reference module's ``network_shapes()``, drawn from ``weights_seed``."""
+    shapes = check.reference_module(conf).network_shapes()
+    return seeded_weights(int(cell["weights_seed"]), device, shapes)
+
+
+def network_template(cfg):
+    """The port's network that ``MODEL.depth_network`` names, on the meta
+    device: ``indoor`` or ``monodepth2``, of ``MODEL.num_layers``."""
+    from e2eslam_tpu_torch.models.depth_net import DispResNetIndoor, MonodepthNet, compute_dtype
+
+    kind, layers, dtype = cfg.MODEL.depth_network, int(cfg.MODEL.num_layers), compute_dtype(cfg)
+    with torch.device("meta"):
+        if kind == "indoor":
+            return DispResNetIndoor(num_layers=layers, dtype=dtype)
+        if kind == "monodepth2":
+            return MonodepthNet(num_layers=layers, scales=tuple(cfg.DATA.scales), dtype=dtype)
+    raise ValueError(f"MODEL.depth_network {kind!r}: the benchmark builds 'indoor' or "
+                     "'monodepth2'")
+
+
+def load_template(template, weights):
+    """``weights`` become ``template``'s own tensors (each unit trains a
+    copy: materialising the module on the card and copying into it took
+    3-5 s of set-up); raises, naming the first key of each kind, unless
+    their names and shapes are the template's."""
+    want = template.state_dict()
+    missing = [k for k in want if k not in weights]
+    unexpected = [k for k in weights if k not in want]
+    resized = [k for k in want if k in weights and weights[k].shape != want[k].shape]
+    if missing or unexpected or resized:
+        first = lambda ks: repr(ks[0]) if ks else "none"  # noqa: E731
+        raise ValueError(
+            f"the reference's network_shapes() do not match {type(template).__name__}: "
+            f"{len(missing)} missing (first {first(missing)}), {len(unexpected)} unexpected "
+            f"(first {first(unexpected)}), {len(resized)} of another shape "
+            f"(first {first(resized)})")
+    template.load_state_dict(weights, assign=True)
+    return template
+
+
 class Runner:
     """Runs units of the cell through the port's public entry points."""
 
     def __init__(self, cell, conf, pool, weights, device):
-        from e2eslam_tpu_torch.models.depth_net import DispResNetIndoor, compute_dtype
-
         self.cell, self.conf, self.pool, self.device = cell, conf, pool, device
         self.n_seq = int(cell["n_seq"])
         cfg = unit_config(conf, cell)
-        with torch.device("meta"):
-            template = DispResNetIndoor(num_layers=int(cfg.MODEL.num_layers),
-                                        dtype=compute_dtype(cfg))
-        # The seeded tensors themselves become the template's: each unit
-        # trains a copy (materialising the module on the card and copying
-        # into it took 3-5 s of set-up).
-        template.load_state_dict(weights, assign=True)
-        self.template = template
+        self.template = load_template(network_template(cfg), weights)
+        schedule = check.reference_module(conf).keyframe_schedule
         thr = float(cfg.DEMO.frame_threshold)
-        self.counts = [[len(keyframe_schedule(p.cpu().numpy(), thr)) for p in unit["poses"]]
+        self.counts = [[len(schedule(p.cpu().numpy(), thr)) for p in unit["poses"]]
                        for unit in pool]
         if self.n_seq == 1:
             self.data = [SequenceData(unit["colors255"][0], *(x[0].cpu().numpy() for x in (
@@ -310,7 +346,6 @@ def run_cell(args, bench, cell, conf, device):
     """Set-up, window, traced units and check of one run; the result."""
     from e2eslam_tpu_torch.ops import cuda_build
     from slambench.peaks import peak
-    from slambench.reference.online_pft import flops_per_event
 
     parts = {"imports_and_cuda_init": time.perf_counter() - T_START}
 
@@ -327,7 +362,7 @@ def run_cell(args, bench, cell, conf, device):
     pool = traffic.render_pool(cell, conf["config"], device)
     order = traffic.order(cell, args.seed)
     t = part("render_pool", t)
-    weights = seeded_weights(int(cell["weights_seed"]), device)
+    weights = network_weights(cell, conf, device)
     t = part("weights", t)
     runner = Runner(cell, conf, pool, weights, device)
     t = part("runner", t)
@@ -350,11 +385,8 @@ def run_cell(args, bench, cell, conf, device):
     name = device_name(device)
     metrics, breakdown, dev_extra = {}, None, {}
     if args.trace:
-        H, W = int(cfg.DATA.height), int(cfg.DATA.width)
-        R = int(cfg.OPTIMIZATION.refinement_steps)
-        flops_step = flops_per_event(H, W, 2, R) / R
         traced_units = [order[(u + i) % len(pool)] for i in range(int(cell["trace_units"]))]
-        summary = traced(runner, traced_units, flops_step,
+        summary = traced(runner, traced_units, flops_per_step(conf, cfg),
                          peak(name, str(cfg.SETTINGS.compute_dtype)))
         summary["window_capture_s"] = [x["capture_s"] for x in units]
         for mname, mod in per_layer_metrics(bench, cell["name"]).items():
@@ -390,6 +422,14 @@ def run_cell(args, bench, cell, conf, device):
     result["setup_parts_s"] = parts
     result["checks"] = checks
     return result
+
+
+def flops_per_step(conf, cfg) -> float:
+    """Model FLOPs of one refinement step: the configuration's reference
+    module's ``flops_per_event`` over an event's R steps (two frames)."""
+    H, W = int(cfg.DATA.height), int(cfg.DATA.width)
+    R = int(cfg.OPTIMIZATION.refinement_steps)
+    return check.reference_module(conf).flops_per_event(H, W, 2, R) / R
 
 
 def sync(device):

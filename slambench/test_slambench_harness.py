@@ -1,9 +1,10 @@
 """CPU tests of the benchmark harness (run: ``python -m pytest slambench -q``).
 
 The harness's lookup by name, its import boundary, the FLOP counter, the
-idle-share union, the renderer copy against the port's dataset, and whole
-runs at a small size on the CPU: sound, with each planted fault, and the
-lower-precision control. The card-only test (``-m cuda``) reads the
+idle-share union, the renderer copy against the port's dataset, the
+network, weights and FLOPs a configuration's reference module defines, and
+whole runs at a small size on the CPU: sound, with each planted fault, and
+the lower-precision control. The card-only test (``-m cuda``) reads the
 control at a cell's own size.
 """
 
@@ -13,14 +14,17 @@ import argparse
 import ast
 import copy
 import json
+import math
 import os
 import shutil
+import sys
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from slambench import check, control, faults, trace
+from slambench import check, control, faults, trace, traffic
 from slambench import run as harness
 from slambench.reference import online_pft
 
@@ -69,7 +73,7 @@ def test_every_entry_resolves_by_name():
     for w in bench["workloads"]:
         _, cell, conf = harness.load_cell(w["name"])
         assert cell["name"] == w["name"] and cell["config"] == w["config"] in configs
-        online_pft.check_supported(conf["config"])
+        check.reference_module(conf).check_supported(conf["config"])
         for name, mod in harness.per_layer_metrics(bench, w["name"]).items():
             assert mod.UNIT == next(m["unit"] for m in bench["per_layer"] if m["name"] == name)
             assert mod.LAYER == next(m["layer"] for m in bench["per_layer"]
@@ -155,12 +159,137 @@ def test_seeded_weights_load_into_the_ports_network():
 
     from slambench.weights import seeded_weights
 
-    w = seeded_weights(2**31 + 7, "cpu")
+    w = seeded_weights(2**31 + 7, "cpu", online_pft.network_shapes())
     DispResNetIndoor().load_state_dict(w)
-    again = seeded_weights(2**31 + 7, "cpu")
+    again = seeded_weights(2**31 + 7, "cpu", online_pft.network_shapes())
     assert all(torch.equal(w[k], again[k]) for k in w)
     k = w["encoder.layer3.0.conv1.weight"]
     assert abs(float(k.std()) - (1.0 / (128 * 9)) ** 0.5) < 0.02 * (1.0 / (128 * 9)) ** 0.5
+
+
+def _former_seeded_weights(seed, device):
+    """``weights.py::seeded_weights`` as it drew every configuration's
+    weights before the configuration's reference module named the tensors:
+    always ``online_pft.network_shapes()``."""
+    shapes = online_pft.network_shapes()
+    convs = [(name, shape) for name, shape, kind in shapes if kind == "conv"]
+    sizes = [math.prod(s) for _, s in convs]
+    stds = torch.tensor([math.sqrt(1.0 / (s[1] * s[2] * s[3])) / 0.87962566103423978
+                         for _, s in convs], device=device)
+    gen = torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
+    lo, hi = 0.5 * math.erfc(2.0 / math.sqrt(2.0)), 0.5 * math.erfc(-2.0 / math.sqrt(2.0))
+    u = torch.rand(sum(sizes), generator=gen, device=device, dtype=torch.float64)
+    x = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
+    flat = (x * torch.repeat_interleave(stds.double(), torch.tensor(sizes, device=device))).float()
+    out = {name: t.reshape(shape) for (name, shape), t in zip(convs, flat.split(sizes))}
+    fill = {"bias": 0.0, "bn_weight": 1.0, "bn_bias": 0.0, "bn_mean": 0.0, "bn_var": 1.0}
+    for name, shape, kind in shapes:
+        if kind in fill:
+            out[name] = torch.full(shape, fill[kind], device=device)
+        elif kind == "bn_count":
+            out[name] = torch.zeros((), dtype=torch.int64, device=device)
+    return out
+
+
+@pytest.mark.parametrize("name", ["default-seq12", "flagship-seq60"])
+def test_the_configurations_weights_equal_the_former_draw(name):
+    _, cell, conf = harness.load_cell(name)
+    for seed in (int(cell["weights_seed"]), 2**31 + 5):
+        new = harness.network_weights(dict(cell, weights_seed=seed), conf, "cpu")
+        old = _former_seeded_weights(seed, "cpu")
+        assert list(new) == list(old)
+        for k in old:
+            assert new[k].dtype == old[k].dtype and new[k].shape == old[k].shape, k
+            assert torch.equal(new[k], old[k]), k
+    cfg = harness.unit_config(conf, cell)
+    assert harness.flops_per_step(conf, cfg) == online_pft.flops_per_event(256, 320, 2, 3) / 3
+
+
+def _port_shapes(model):
+    """(name, shape, kind) of a port network's state dict, kinds by module."""
+    kinds = {}
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            kinds.update({f"{name}.weight": "conv", f"{name}.bias": "bias"})
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            kinds.update({f"{name}.{k}": v for k, v in (
+                ("weight", "bn_weight"), ("bias", "bn_bias"), ("running_mean", "bn_mean"),
+                ("running_var", "bn_var"), ("num_batches_tracked", "bn_count"))})
+    return [(k, tuple(v.shape), kinds[k]) for k, v in model.state_dict().items()]
+
+
+def _stub_reference(monkeypatch, name, shapes):
+    """A reference module ``slambench.reference.<name>`` that holds
+    ``shapes`` and counts 7 FLOPs a pixel, frame and pass."""
+    stub = types.ModuleType(f"slambench.reference.{name}")
+    stub.check_supported = lambda cfg: None
+    stub.network_shapes = lambda: list(shapes)
+    stub.flops_per_event = lambda h, w, frames=2, steps=3: 7.0 * h * w * frames * (3 * steps + 1)
+    stub.keyframe_schedule = online_pft.keyframe_schedule
+    monkeypatch.setitem(sys.modules, stub.__name__, stub)
+    return stub
+
+
+def _monodepth2_50(name="default-seq12"):
+    _, cell, conf = harness.load_cell(name)
+    conf = copy.deepcopy(conf)
+    conf["config"]["MODEL"].update(depth_network="monodepth2", num_layers=50)
+    return cell, conf
+
+
+def test_a_configuration_names_its_own_network(monkeypatch):
+    from e2eslam_tpu_torch.models.depth_net import MonodepthNet
+
+    cell, conf = _monodepth2_50()
+    with torch.device("meta"):
+        shapes = _port_shapes(MonodepthNet(50, scales=(0,)))
+    stub = _stub_reference(monkeypatch, "stub_monodepth2_50", shapes)
+    conf["reference"] = "stub_monodepth2_50"
+    weights = harness.network_weights(cell, conf, "cpu")
+    assert {k: tuple(v.shape) for k, v in weights.items()} == {k: s for k, s, _ in shapes}
+    assert len(shapes) > len(online_pft.network_shapes())
+    cfg = harness.unit_config(conf, cell)
+    assert harness.flops_per_step(conf, cfg) == stub.flops_per_event(256, 320, 2, 3) / 3
+    cell = dict(cell, frames=5, pool=1)
+    conf["config"]["DATA"].update(height=64, width=96)
+    pool = traffic.render_pool(cell, conf["config"], torch.device("cpu"))
+    runner = harness.Runner(cell, conf, pool, weights, torch.device("cpu"))
+    assert type(runner.template) is MonodepthNet
+    held = runner.template.state_dict()
+    assert set(held) == set(weights)
+    assert all(held[k].data_ptr() == weights[k].data_ptr() for k in weights)  # assigned
+    out = runner.unit(0)  # the template runs through the program
+    abs_rel = out["sequences"][0]["abs_rel"]
+    assert out["events"] == len(abs_rel) == runner.counts[0][0] > 0
+    assert np.all(np.isfinite(abs_rel))
+
+
+@pytest.mark.parametrize("case", ["unknown_network", "indoor_shapes", "one_resized"])
+def test_set_up_names_what_does_not_match(monkeypatch, case):
+    from e2eslam_tpu_torch.models.depth_net import MonodepthNet
+
+    cell, conf = _monodepth2_50()
+    with torch.device("meta"):
+        shapes = _port_shapes(MonodepthNet(50, scales=(0,)))
+    if case == "unknown_network":
+        conf["config"]["MODEL"]["depth_network"] = "dispnet"
+        expected = ["'dispnet'"]
+    elif case == "indoor_shapes":
+        shapes = online_pft.network_shapes()
+        expected = ["MonodepthNet", "missing (first 'encoder.layer1.0.conv3.weight')",
+                    "unexpected (first 'decoder.11.conv.weight')"]
+    else:
+        k, s, kind = shapes[0]
+        shapes = [(k, (s[0], s[1], 3, 3), kind)] + shapes[1:]
+        expected = ["0 missing", "0 unexpected", "1 of another shape (first "
+                    "'encoder.conv1.weight')"]
+    _stub_reference(monkeypatch, "stub_mismatch", shapes)
+    conf["reference"] = "stub_mismatch"
+    weights = harness.network_weights(cell, conf, "cpu")
+    with pytest.raises(ValueError) as err:
+        harness.Runner(cell, conf, [], weights, torch.device("cpu"))
+    for text in expected:
+        assert text in str(err.value)
 
 
 def _run(name, frames=5):
