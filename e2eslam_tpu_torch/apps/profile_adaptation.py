@@ -24,8 +24,8 @@ events replay one CUDA graph), ``keyframe`` the per-keyframe loop
      ``torch.profiler``: device time by kernel family (the KNN kernels and
      the convolutions; every other kernel is shared by several layers),
      the program's own phase times per replayed event from its device
-     timestamps (``utils/tracing.py``: the sort, each step's forward,
-     loss, backward, optimizer and metrics, fusion), the device's launches
+     timestamps (``utils/tracing.py``: the sort, each step's phases,
+     fusion), the device's launches
      (kernels and copies), its idle share (1 - the union of its kernel and
      copy intervals over the adaptation's ranges, profiler overhead
      included),

@@ -713,14 +713,18 @@ class RefinementEngine:
                                    device=pair.colors.device,
                                    requires_grad=True)
                     for k, shape in decoder_tap_shapes(F, H, W).items()}
-        with tracing.phase("step.forward"):
+        with tracing.phase("step.encoder"):
             # The program's replays keep the gradients' buffers: zeroed, not freed.
             self.optimizer.zero_grad(set_to_none=self._schedule is None)
-            disp, depth = self.forward_depths(pair.colors, taps=taps)
+            features = self.model.encode(self.net_input(pair.colors))
+        with tracing.phase("step.decoder"):
+            out = self.model.decode(features, taps=taps)
+            disp, depth = self.depths_from_net(out, pair.colors.shape[0])
         with tracing.phase("step.loss"):
             loss, aux, depth, outputs = self.step_loss(pair, disp, depth, map_state, map_index,
                                                        knn_init, thread_knn, step)
-        with tracing.phase("step.backward"):
+        with tracing.phase("step.loss_grad"), tracing.grad_phases(
+                (out, "step.decoder_grad"), (features[-1], "step.encoder_grad")):
             loss.backward()
             for p in self._zero_grads:
                 if p.grad is None:
@@ -1117,7 +1121,8 @@ class RefinementEngine:
         side = torch.cuda.Stream(device=dev) if cuda else None
         if cuda:
             side.wait_stream(torch.cuda.current_stream(dev))
-        tracing.begin_events(E, self.refinement_steps, dev,
+        tracing.begin_events(E, tracing.phase_names(self.refinement_steps,
+                                                     tracing.NETWORK_STEP_PHASES), dev,
                              replayed=[cuda and e >= 2 for e in range(E)])
         graph = None
         try:

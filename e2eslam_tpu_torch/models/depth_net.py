@@ -20,7 +20,7 @@ scales (``networks.py:191-215``; ``e2eslam_tpu/models/depth_net.py:65-100``).
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 from torch import nn
@@ -46,7 +46,14 @@ class _EncoderDecoder(nn.Module):
         return super().train(False)
 
     def forward(self, x: Tensor, taps=None) -> Tensor:
-        features = self.encoder(x.permute(0, 3, 1, 2))
+        return self.decode(self.encode(x), taps=taps)
+
+    def encode(self, x: Tensor) -> List[Tensor]:
+        """NHWC images -> the encoder's five NCHW feature maps."""
+        return self.encoder(x.permute(0, 3, 1, 2))
+
+    def decode(self, features: Sequence[Tensor], taps=None) -> Tensor:
+        """The encoder's features -> the scale-0 NHWC disparity."""
         return self.decoder(features, scales=(0,), taps=taps)[0].permute(0, 2, 3, 1)
 
 

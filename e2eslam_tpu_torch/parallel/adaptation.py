@@ -342,7 +342,8 @@ class ParallelAdaptation:
         if cuda:
             side.wait_stream(torch.cuda.current_stream(dev))
         sync_mode = par.engines[0].replay_sync_mode
-        tracing.begin_events(E, self.R, dev, replayed=[cuda and e >= 2 for e in range(E)])
+        tracing.begin_events(E, tracing.phase_names(self.R), dev,
+                             replayed=[cuda and e >= 2 for e in range(E)])
         graph = None
         try:
             for e in range(E):

@@ -16,9 +16,19 @@ On:
     wraps each event's body in ``event(ev_i)`` (``ev_i``: the program's own
     int64 event index, on its device). Each ``phase(name)`` then writes
     mark k of the event's row of a stamps buffer ``[E, P + 1]`` (int64
-    ns) as phase k starts, and the event's end writes mark P. The phases:
-    ``inputs``, ``sort``, R x (``forward``, ``loss``, ``backward``,
-    ``optimizer``, ``metrics``), ``fusion``, ``rows`` (``phase_names``).
+    ns) as phase k starts, and the event's end writes mark P. The phases
+    (``phase_names``): ``inputs``, ``sort``, R x the program's step phases,
+    ``fusion``, ``rows``. The fleet's step: ``forward``, ``loss``,
+    ``backward``, ``optimizer``, ``metrics`` (``STEP_PHASES``). The
+    single-sequence engine's step splits the network at its encoder's
+    features (``NETWORK_STEP_PHASES``): ``encoder``, ``decoder``, ``loss``,
+    ``loss_grad`` (from the backward's start), ``decoder_grad`` (from the
+    network output's gradient), ``encoder_grad`` (from the deepest
+    feature's gradient), ``optimizer``, ``metrics``. The backward's marks
+    are tensor hooks (``grad_phases``), installed for the backward of a
+    stamped event alone and removed after it: each stamps on the thread
+    and stream the autograd engine runs that gradient on, so a captured
+    graph holds it.
     On a CUDA card a mark is one thread of ``TIMESTAMP_KERNEL`` (PTX loaded
     with libcuda's ``cuModuleLoadData``: no compiler) reading
     ``%globaltimer`` and the event index from the device, launched on the
@@ -50,6 +60,8 @@ from torch.profiler import record_function
 PREFIX = "e2eslam."
 TIMESTAMP_KERNEL = "e2eslam_timestamp"
 STEP_PHASES = ("forward", "loss", "backward", "optimizer", "metrics")
+NETWORK_STEP_PHASES = ("encoder", "decoder", "loss", "loss_grad", "decoder_grad",
+                       "encoder_grad", "optimizer", "metrics")
 
 TRACES: collections.deque = collections.deque(maxlen=64)
 
@@ -62,9 +74,10 @@ def active() -> bool:
     return bool(torch._C._autograd._profiler_enabled())
 
 
-def phase_names(steps: int) -> List[str]:
-    """The P = 4 + 5 ``steps`` phases of a keyframe event, in order."""
-    return (["inputs", "sort"] + [f"{p}.{r}" for r in range(steps) for p in STEP_PHASES]
+def phase_names(steps: int, step_phases: Sequence[str] = STEP_PHASES) -> List[str]:
+    """The P = 4 + len(``step_phases``) ``steps`` phases of a keyframe
+    event, in order."""
+    return (["inputs", "sort"] + [f"{p}.{r}" for r in range(steps) for p in step_phases]
             + ["fusion", "rows"])
 
 
@@ -88,15 +101,28 @@ class Session:
             yield
         self.span_s[name] = self.span_s.get(name, 0.0) + time.perf_counter() - t0
 
+    def mark(self, name: str) -> None:
+        """Inside an event: stamp the start of its next phase, ``name``."""
+        if self._row is None:
+            return
+        want = self.phases[self._k] if self._k < len(self.phases) else None
+        if want is None or want.split(".")[0] != name.split(".", 1)[1]:
+            raise RuntimeError(f"phase {name!r} where the event's phase {self._k} is {want!r}")
+        stamp(self.stamps, self._row, self._k)
+        self._k += 1
+
     def phase(self, name: str):
-        if self._row is not None:
-            want = self.phases[self._k] if self._k < len(self.phases) else None
-            if want is None or want.split(".")[0] != name.split(".", 1)[1]:
-                raise RuntimeError(f"phase {name!r} where the event's phase {self._k} is "
-                                   f"{want!r}")
-            stamp(self.stamps, self._row, self._k)
-            self._k += 1
+        self.mark(name)
         return self.span(name)
+
+    @contextlib.contextmanager
+    def grad_phases(self, marks: Sequence[Tuple[torch.Tensor, str]]):
+        handles = [t.register_hook(lambda grad, n=name: self.mark(n)) for t, name in marks]
+        try:
+            yield
+        finally:
+            for h in handles:
+                h.remove()
 
     @contextlib.contextmanager
     def event(self, row: torch.Tensor):
@@ -114,9 +140,9 @@ class Session:
         finally:
             self._row = None
 
-    def begin_events(self, n_events: int, steps: int, device: torch.device,
+    def begin_events(self, n_events: int, phases: Sequence[str], device: torch.device,
                      replayed: Sequence[bool]) -> None:
-        self.phases = phase_names(steps)
+        self.phases = list(phases)
         self.replayed = [bool(r) for r in replayed]
         self.stamps = torch.zeros(n_events, len(self.phases) + 1, dtype=torch.int64,
                                   device=device)
@@ -179,13 +205,23 @@ def event(row: torch.Tensor):
     return _NULL if s is None else s.event(row)
 
 
-def begin_events(n_events: int, steps: int, device: torch.device,
+def grad_phases(*marks: Tuple[torch.Tensor, str]):
+    """Around a stamped event's backward: for each ``(tensor, name)`` the
+    phase ``name`` starts when ``tensor``'s gradient is complete (a hook on
+    the tensor, removed at the block's end); off, or outside an event, the
+    shared null context and no hook."""
+    s = _CURRENT
+    return _NULL if s is None or s._row is None else s.grad_phases(marks)
+
+
+def begin_events(n_events: int, phases: Sequence[str], device: torch.device,
                  replayed: Sequence[bool]) -> None:
-    """A program of ``n_events`` events of ``steps`` steps on ``device``
-    starts; ``replayed``: which events are a graph's replays."""
+    """A program of ``n_events`` events of the phases ``phases``
+    (``phase_names``) on ``device`` starts; ``replayed``: which events are
+    a graph's replays."""
     s = _CURRENT
     if s is not None:
-        s.begin_events(n_events, steps, device, replayed)
+        s.begin_events(n_events, phases, device, replayed)
 
 
 def read(table: torch.Tensor) -> np.ndarray:

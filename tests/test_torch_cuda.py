@@ -1128,7 +1128,9 @@ def test_timestamp_kernel_writes_one_row_per_replay(card):
 def test_traced_program_stamps_agree_with_the_cards_clocks(card, monkeypatch):
     """The program on the card, traced (under the profiler) and not: the
     untraced run launches no mark; each replayed event of the traced run
-    holds P = 4 + 5R phase times whose sum, its first to last mark, agrees
+    holds the P phase times of the program it traced (4 + 8R: the
+    single-sequence step's ``tracing.NETWORK_STEP_PHASES``, three of them
+    marked from the backward's hooks) whose sum, its first to last mark, agrees
     within 1% or 50 us with CUDA events around its replay (each replay
     queued behind a sleep kernel, so that the events bracket the graph's
     work and not the host's launch; the graph's first replay, which also
@@ -1163,11 +1165,14 @@ def test_traced_program_stamps_agree_with_the_cards_clocks(card, monkeypatch):
     trace = result["trace"]
     E = len(result["keyframes"])
     assert trace["replayed"] == [e >= 2 for e in range(E)] and len(timed) == E - 2
+    phases = tracing.phase_names(2, tracing.NETWORK_STEP_PHASES)
+    P = len(phases)
+    assert trace["phases"] == phases and P == 4 + 8 * 2
     phase_ms = np.asarray(trace["event_phase_ms"])
-    assert phase_ms.shape == (E, 4 + 5 * 2) and (phase_ms >= 0).all()
+    assert phase_ms.shape == (E, P) and (phase_ms >= 0).all()
     stamped = phase_ms.sum(axis=1)[3:]
     events = np.asarray([a.elapsed_time(b) for a, b in timed[1:]])
     assert (np.abs(events - stamped) <= np.maximum(0.05, 0.01 * stamped)).all(), (events, stamped)
     marks = [n for _, _, n in tracing.device_intervals(prof.events())
              if n == tracing.TIMESTAMP_KERNEL]
-    assert len(marks) == E * (4 + 5 * 2 + 1)
+    assert len(marks) == E * (P + 1)

@@ -2,8 +2,8 @@
 monodepth2``) with the flax model, through the weight bridge.
 
 Tolerance: the indoor network's (tests/test_torch_models.py), 1e-4
-relative / 1e-5 absolute on sigmoid disparities after ~20 float32
-convolutions summed in another order.
+relative / 1e-5 absolute on sigmoid disparities after ~20 (ResNet-18) or
+~70 (ResNet-50) float32 convolutions summed in another order.
 """
 
 import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
@@ -28,16 +28,17 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 
 
-@pytest.fixture(scope="module")
-def jax_monodepth():
-    model = JaxMonodepth(num_layers=18, scales=(0, 1, 2, 3))
+@pytest.fixture(scope="module", params=[18, 50])
+def jax_monodepth(request):
+    model = JaxMonodepth(num_layers=request.param, scales=(0, 1, 2, 3))
     params, stats = init_depth_model(model, jax.random.key(3), H, W)
-    return model, _np(params), _np(stats)
+    return request.param, model, _np(params), _np(stats)
 
 
 def test_monodepth_forward_matches_flax(jax_monodepth):
-    model, params, stats = jax_monodepth
-    port = MonodepthNet(18, (0, 1, 2, 3))
+    """ResNet-18, and ResNet-50's bottleneck blocks and 4x-wide skips."""
+    layers, model, params, stats = jax_monodepth
+    port = MonodepthNet(layers, (0, 1, 2, 3))
     load_jax_params(port, params, stats)
     x = np.random.default_rng(1).uniform(size=(2, H, W, 3)).astype(np.float32)
     want = model.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=False)

@@ -54,6 +54,7 @@ from e2eslam_tpu_torch.config import default_config_path, load_yaml
 from e2eslam_tpu_torch.engine import adaptation
 from e2eslam_tpu_torch.models.convert import load_jax_params, torch_key
 from e2eslam_tpu_torch.models.depth_net import make_depth_model
+from e2eslam_tpu_torch.utils import tracing
 
 H = W = 64
 NAME = "outputs"
@@ -182,11 +183,13 @@ def test_trace_file(runs):
     assert any(n.startswith("aten::conv") for n in names)
     assert {"e2eslam.program.eager_event", "e2eslam.step.loss", "e2eslam.event.fusion"} <= names
     assert runs["loop"]["profile_trace"] is None
-    # The program's phase timestamps: every event, P = 4 + 5R phases each.
+    # The program's phase timestamps: every event, P = 4 + 8R phases each
+    # (the single-sequence step splits the network at its encoder).
     R, E = BASE["OPTIMIZATION.refinement_steps"], len(runs["program"]["keyframes"])
     phase_ms = np.asarray(runs["program"]["trace"]["event_phase_ms"])
-    assert len(runs["program"]["trace"]["phases"]) == 4 + 5 * R
-    assert phase_ms.shape == (E, 4 + 5 * R) and np.isfinite(phase_ms).all()
+    assert runs["program"]["trace"]["phases"] == tracing.phase_names(R, tracing.NETWORK_STEP_PHASES)
+    assert len(runs["program"]["trace"]["phases"]) == 4 + 8 * R
+    assert phase_ms.shape == (E, 4 + 8 * R) and np.isfinite(phase_ms).all()
     assert runs["loop"]["trace"] is None
 
 

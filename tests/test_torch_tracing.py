@@ -5,8 +5,9 @@ records. Off, a run records no ``e2eslam.`` range, stamps nothing and its
 result's ``trace`` is None. On, the run computes exactly what it computes
 off (metrics, poses and map equal to the bit: the CPU runs every event
 eagerly, and a mark is the host's clock) and its ``trace`` holds every
-event's P = 4 + 5R phase times; the whole-sequence program and the program
-over B = 2 sequences alike. 64x64, 3 frames, R = 2.
+event's phase times: P = 4 + 8R in the whole-sequence program, whose
+step splits the network at its encoder (``tracing.NETWORK_STEP_PHASES``),
+and P = 4 + 5R in the program over B = 2 sequences. 64x64, 3 frames, R = 2.
 """
 
 import torch_omp  # noqa: F401  (first: OpenMP's wait policy, before torch loads)
@@ -98,17 +99,24 @@ def test_off_without_a_profiler(runs):
         assert plain["trace"] is None and kept == 0
 
 
+STEPS = {"single": (tracing.NETWORK_STEP_PHASES, 8, {"e2eslam.step.encoder",
+                                                     "e2eslam.step.decoder"}),
+         "batch2": (tracing.STEP_PHASES, 5, set())}
+
+
 @pytest.mark.parametrize("name", ["single", "batch2"])
 def test_traced_run_computes_what_the_plain_run_does(runs, name):
     plain, _, traced, names = runs[name]
+    step_phases, per_step, spans = STEPS[name]
     _same(plain, traced)
     assert {"e2eslam.program.eager_event", "e2eslam.step.loss", "e2eslam.event.fusion",
-            "e2eslam.unit.build"} <= names
+            "e2eslam.unit.build"} | spans <= names
     E = traced.get("num_events", len(traced.get("keyframes", ())))
     trace = traced["trace"]
-    assert trace["phases"] == tracing.phase_names(R) and len(trace["phases"]) == 4 + 5 * R
+    P = 4 + per_step * R
+    assert trace["phases"] == tracing.phase_names(R, step_phases) and len(trace["phases"]) == P
     phase_ms = np.asarray(trace["event_phase_ms"])
-    assert phase_ms.shape == (E, 4 + 5 * R) and np.isfinite(phase_ms).all()
+    assert phase_ms.shape == (E, P) and np.isfinite(phase_ms).all()
     assert (phase_ms >= 0).all() and (phase_ms.sum(axis=1) > 0).all()
     assert trace["replayed"] == [False] * E  # the CPU runs every event eagerly
     assert {"unit.load_batch", "program.eager_event", "program.readback", "unit.summary",
@@ -121,7 +129,8 @@ def test_marks_ride_in_the_final_read():
     the marks relative to the run's first; ``finish`` differences them."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         with tracing.session() as tr:
-            tr.begin_events(2, 1, torch.device("cpu"), replayed=[False, True])
+            tr.begin_events(2, tracing.phase_names(1), torch.device("cpu"),
+                            replayed=[False, True])
             tr.stamps.copy_(torch.tensor([[10, 12, 15, 15, 20, 26, 27, 29, 30, 31],
                                           [40, 41, 43, 46, 50, 55, 61, 68, 76, 85]]) * 10**6)
             table = torch.arange(6, dtype=torch.float64).reshape(2, 3)
@@ -136,7 +145,7 @@ def test_marks_ride_in_the_final_read():
 def test_a_phase_out_of_order_raises():
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         with tracing.session() as tr:
-            tr.begin_events(1, 1, torch.device("cpu"), replayed=[False])
+            tr.begin_events(1, tracing.phase_names(1), torch.device("cpu"), replayed=[False])
             row = torch.zeros(1, dtype=torch.int64)
             with pytest.raises(RuntimeError, match="phase"):
                 with tracing.event(row), tracing.phase("event.sort"):
