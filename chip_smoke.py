@@ -152,8 +152,8 @@ Phases (any failure ends the script with a non-zero exit):
               chamfer_distance_map_sharded. More than one card is not
               exercised here: the multi-rank paths are tested on gloo;
  13. sequence the whole-sequence program (engine/refine.py::process_sequence:
-              on the card events 0-1 eager on a side stream, then one
-              captured CUDA graph replayed for every later event, the map's
+              on the card event 0 eager on a side stream, then one
+              CUDA graph captured at event 1 and replayed for every later event, the map's
               count on the device) against the per-keyframe loop, each of
               SEQUENCE_RUNS at 320x256, ResNet-18, R = 3, deterministic
               algorithms (the default config over 12 and 60 frames, the
@@ -171,7 +171,7 @@ Phases (any failure ends the script with a non-zero exit):
               rate 0, equal to the loop in every abs_rel and map point; the
               replays and the compaction passes between them run under
               set_sync_debug_mode("error"); host syncs an event for
-              default_12 and compact_60, and none from event 2 to the end
+              default_12 and compact_60, and none from event 1 to the end
               of compact_60's program; each pass's device time (CUDA
               events, ``pass_ms``); compact_voxel_12_seedless (voxel
               passes on the brute path) equal to its loop to the bit;
@@ -189,7 +189,7 @@ Phases (any failure ends the script with a non-zero exit):
               with deterministic algorithms: the observed run takes the
               whole-sequence program (one graph, replays under
               set_sync_debug_mode("error"), no host synchronisation from
-              event 2 to its end), held against the observed loop as
+              event 1 to its end), held against the observed loop as
               ``sequence`` holds its shipped rows; its JSONL holds one step
               per keyframe with every scalar metric and a finite
               ``grad_norm/`` for every parameter, 0 for the frozen ones; its
@@ -2740,7 +2740,7 @@ SEQUENCE_RUNS = (
 SEQUENCE_EXACT = ("active_window_12_seedless", "sgd_12_seedless", "compact_voxel_12_seedless")
 # Runs whose program's host synchronisations are counted
 # (``set_sync_debug_mode("warn")``): over the whole run, and from the end of
-# the capture (event 2) to the end of the last replay or pass, where a
+# the capture (event 1) to the end of the last replay or pass, where a
 # compacting run must make none.
 SEQUENCE_SYNC_COUNTED = ("default_12", "compact_60")
 SEQUENCE_FIRST_TOL = 1e-3  # the first two keyframes' abs_rel, relative (the run tolerance)
@@ -2807,7 +2807,7 @@ class _MarkedGraph:
 
 class SyncSpan:
     """The host synchronisations a program run makes from the end of its
-    graph capture (the start of event 2) to the end of its last replay or
+    graph capture (event 1, before its replay) to the end of its last replay or
     compaction pass: the ``set_sync_debug_mode("warn")`` warnings recorded
     in ``caught`` (a ``warnings.catch_warnings(record=True)`` list) over
     that span. ``owner`` captures the graph (``_capture_event``), each of
@@ -2848,7 +2848,7 @@ def _sequence_run(knn, workload, frames, program, rec=None, sync_warn=False, see
     through the whole-sequence program (its replays and compaction passes
     under ``set_sync_debug_mode("error")``: a synchronisation raises) or the
     per-keyframe loop. With ``sync_warn`` the host synchronisations are
-    counted, the program's also from event 2 to its end (``SyncSpan``); each
+    counted, the program's also from event 1 to its end (``SyncSpan``); each
     compaction pass is timed (``PassTimer``, ``pass_ms``). Returns (result,
     line); the line's ``launches`` are
     the kernels' launches on the device: the eager ones plus each launch
@@ -2896,7 +2896,7 @@ def _sequence_run(knn, workload, frames, program, rec=None, sync_warn=False, see
         finally:
             torch.cuda.set_sync_debug_mode("default")
     counted_launches = launch_counts(knn)
-    replays = max(result["num_keyframes"] - 2, 0) if result["graphs"] else 0
+    replays = max(result["num_keyframes"] - 1, 0) if result["graphs"] else 0
     launches = {k: n - captured.get(k, 0) + captured.get(k, 0) * replays
                 for k, n in counted_launches.items()}
     busy = result["elapsed_s"] - result["capture_s"]
@@ -2915,7 +2915,7 @@ def _sequence_run(knn, workload, frames, program, rec=None, sync_warn=False, see
         syncs = sum("synchroniz" in str(w.message) for w in caught)
         line.update(host_syncs=syncs, host_syncs_per_event=syncs / max(result["num_keyframes"], 1))
         if span is not None:
-            line["host_syncs_from_event_2"] = span.syncs
+            line["host_syncs_from_event_1"] = span.syncs
     return result, line
 
 
@@ -2972,15 +2972,15 @@ def _check_pair(label, prog, loop, pline, lline, held):
 
 def phase_sequence(knn, stats, smi):
     """The whole-sequence program (engine/refine.py::process_sequence: on
-    the card events 0-1 eager, then one captured CUDA graph replayed for
-    every later event) against the per-keyframe loop, each run of
+    the card event 0 eager, then one CUDA graph captured at event 1 and
+    replayed for every later event) against the per-keyframe loop, each run of
     SEQUENCE_RUNS through both at 320x256, ResNet-18, R = 3, deterministic
     algorithms (``_check_pair``). First the data path alone: the default
     config's 12 frames at learning rate 0 (the network frozen), where the
     program must give the loop's every abs_rel and map point. No host
     synchronisation inside a replay or a compaction pass (the runs raise on
     one); host syncs an event counted for SEQUENCE_SYNC_COUNTED
-    (``set_sync_debug_mode("warn")``), and none allowed from event 2 to the
+    (``set_sync_debug_mode("warn")``), and none allowed from event 1 to the
     end of compact_60's program; each pass's device time printed
     (``pass_ms``, program and loop). The
     default program's captured candidate call, the chamfer program's
@@ -3034,9 +3034,9 @@ def phase_sequence(knn, stats, smi):
             dense_args = (q4, r4, knn._tile_boxes(r4[:, :3], knn.RT), s0, i0, nq, nr, knn.RT)
             compare_call(knn, "dense", dense_args, "sequence inputs (device counts)", stats,
                          stats_key="dense_sequence")
-        if sync_warn and pline["compactions"] and pline["host_syncs_from_event_2"] != 0:
+        if sync_warn and pline["compactions"] and pline["host_syncs_from_event_1"] != 0:
             fail(f"sequence {label}: the program synchronised "
-                 f"{pline['host_syncs_from_event_2']} times from event 2 to its end")
+                 f"{pline['host_syncs_from_event_1']} times from event 1 to its end")
         if label == "chamfer_12":
             if pline["captured_launches"]["resident"] == 0:
                 fail("sequence chamfer_12: the captured event launches no resident kernel")
@@ -3205,7 +3205,7 @@ def _batched_program_run(knn, cfg, seqs, dispatch, *, seedless=False, frame_rows
     captured event counted and its calls there recorded (a Recorder with
     ``frame_rows``), each compaction pass timed (``PassTimer``,
     ``pass_ms``). With ``sync_warn`` the host synchronisations are counted,
-    the program's also from event 2 to its end (``SyncSpan``). Returns
+    the program's also from event 1 to its end (``SyncSpan``). Returns
     (line, result, the capture's Recorder)."""
     import warnings
 
@@ -3241,7 +3241,7 @@ def _batched_program_run(knn, cfg, seqs, dispatch, *, seedless=False, frame_rows
             line, out = run_batched(cfg, seqs, dispatch=dispatch, runner_hook=hook)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    replays = max(out["num_events"] - 2, 0) if out["graphs"] else 0
+    replays = max(out["num_events"] - 1, 0) if out["graphs"] else 0
     eager = launch_counts(knn)
     line["launches"] = {k: n - captured.get(k, 0) + captured.get(k, 0) * replays
                         for k, n in eager.items()}
@@ -3252,7 +3252,7 @@ def _batched_program_run(knn, cfg, seqs, dispatch, *, seedless=False, frame_rows
     if sync_warn:
         line["host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
         if "span" in probes:
-            line["host_syncs_from_event_2"] = probes["span"].syncs
+            line["host_syncs_from_event_1"] = probes["span"].syncs
     return line, out, rec
 
 
@@ -3328,8 +3328,8 @@ def commit_select_ms(cfg, b, reps=20):
 
 def phase_batched_program(knn, stats, smi):
     """``ParallelAdaptation.run(dispatch="whole")``, the program over B =
-    PROGRAM_B sequences (on the card events 0-1 eager, then one captured
-    CUDA graph replayed), against its per-event loop (``dispatch="event"``),
+    PROGRAM_B sequences (on the card event 0 eager, then one CUDA graph
+    captured at event 1 and replayed), against its per-event loop (``dispatch="event"``),
     with deterministic algorithms:
       * the default config, BATCHED_FRAMES ragged frames
         (``_batched_sequences``): seedless with the fused Adam, equal to the
@@ -3354,7 +3354,7 @@ def phase_batched_program(knn, stats, smi):
         seedless with the fused Adam, and the flagship sequences with a
         projective pass every 10th (``compact_config``): equal to the bit,
         the same passes with the same counts as the loop's, no host
-        synchronisation from event 2 to the end, each pass's device time
+        synchronisation from event 1 to the end, each pass's device time
         (``pass_ms``) beside the loop's.
     Then, with the default algorithms, each config timed (program, loop,
     loop, program for the default config, program and loop for the
@@ -3487,9 +3487,9 @@ def phase_batched_program(knn, stats, smi):
                  f"{lline['compactions']}")
         if not equal:
             fail(f"batched_program {name}: the program parts from the loop")
-        if pline["host_syncs_from_event_2"] != 0:
+        if pline["host_syncs_from_event_1"] != 0:
             fail(f"batched_program {name}: the program synchronised "
-                 f"{pline['host_syncs_from_event_2']} times from event 2 to its end")
+                 f"{pline['host_syncs_from_event_1']} times from event 1 to its end")
 
     # The observability outputs (each sequence's gradient norms and debug
     # images) carried by the program, seedless with the fused Adam.
@@ -3513,9 +3513,9 @@ def phase_batched_program(knn, stats, smi):
              "or images")
     if not equal:
         fail("batched_program default_observed_seedless_fused: the program parts from the loop")
-    if op["host_syncs_from_event_2"] != 0:
+    if op["host_syncs_from_event_1"] != 0:
         fail(f"batched_program default_observed_seedless_fused: the program synchronised "
-             f"{op['host_syncs_from_event_2']} times from event 2 to its end")
+             f"{op['host_syncs_from_event_1']} times from event 1 to its end")
 
     # Default algorithms: timed in turns, then profiled.
     for name, c, x, turns in (("default", cfg, seqs, ("whole", "event", "event", "whole")),
@@ -3653,9 +3653,9 @@ def phase_observability(knn, smi):
                       "trace_bytes": os.path.getsize(prog["profile_trace"]),
                       "trace_events": trace_events, "trace_kernels": counts,
                       "launches": pline["launches"], "nvidia_smi": smi}), flush=True)
-    if pline["host_syncs_from_event_2"] != 0:
+    if pline["host_syncs_from_event_1"] != 0:
         fail(f"observability: the observed program synchronised "
-             f"{pline['host_syncs_from_event_2']} times from event 2 to its end")
+             f"{pline['host_syncs_from_event_1']} times from event 1 to its end")
     if sorted(steps) != list(range(prog["num_keyframes"])) or bad_steps or nonzero_frozen:
         fail(f"observability: the scalar log has steps {sorted(steps)}, incomplete or "
              f"non-finite steps {bad_steps}, frozen norms not 0 {nonzero_frozen[:4]}")

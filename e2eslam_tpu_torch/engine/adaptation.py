@@ -316,7 +316,7 @@ class OnlineAdaptation(KeyframeViews):
             else:
                 global_map, keyframes, metrics, est, seeded_at = self._run_loop(
                     global_map, colors, gt_depths, K, poses, schedule, verbose)
-                info = {"graphs": 0, "capture_s": 0.0}
+                info = {"graphs": 0, "capture_s": 0.0, "counts": None}
             self._sync()
             elapsed = time.perf_counter() - t_start
             with tracing.span("unit.summary"):
@@ -463,10 +463,12 @@ class OnlineAdaptation(KeyframeViews):
             "seeded_at": seeded_at,
             "compactions": self.compactions,
             # The whole-sequence program: whether it ran, the CUDA graphs it
-            # captured and their capture time (inside elapsed_s).
+            # captured and their capture time (inside elapsed_s), its counts
+            # (refine.py::program_counts; None for the per-keyframe loop).
             "sequence_program": program,
             "graphs": info["graphs"],
             "capture_s": info["capture_s"],
+            "counts": info["counts"],
         }
         if compacted is not None:
             result["map_points_compacted"] = compacted

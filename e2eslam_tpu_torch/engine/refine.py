@@ -39,10 +39,12 @@ The whole-sequence program (``process_sequence``, the JAX engine's
 schedule, E events of R PFT steps and fusion, with no read from the device
 to the host: the map's count, the cross-keyframe KNN cache, the learning
 rate and each event's metrics stay on the device. On the CPU its events run
-eagerly. On a CUDA card the first two run eagerly on a side stream (they
-set up cuDNN, autograd and the optimizer's state), the body of one warm
-event is captured once as a CUDA graph, and events 2 to E-1 are its
-replays, fed their frame indices from pinned host memory; a periodic
+eagerly. On a CUDA card with at least three events (``event_schedule``)
+event 0 runs eagerly on a side stream (it sets up cuDNN, autograd and the
+optimizer's state), event 1 is captured as a CUDA graph into the process's
+graph pool (``capture_graph``: no synchronisation and no flush of the
+allocators' caches), and events 1 to E-1 are its replays, fed their frame
+indices from pinned host memory; a periodic
 compaction pass (``slam/compact.py``, fixed-shape) is launched between
 replays over a bucket of rows chosen from a host bound on the count, with
 no read. Every KNN launch inside the graph reads its valid counts on the
@@ -1076,11 +1078,15 @@ class RefinementEngine:
         ``MODEL.compact_period`` P the map is compacted after event ``e``
         when ``(e + 1) % P == 0``, from that event's estimated camera.
 
-        Nothing is read to the host before the end. On a CUDA device events
-        0 and 1 run eagerly on a side stream, one warm event is captured as
-        a CUDA graph and events 2..E-1 replay it (a failed capture raises;
-        nothing falls back to the per-keyframe loop); on the CPU every
-        event runs eagerly. A compaction pass is
+        Nothing is read to the host before the end. Each event runs as
+        ``event_schedule(E, cuda)`` says: on a CUDA device with E >= 3,
+        event 0 eagerly on the process's side stream, event 1 captured as
+        a CUDA graph into the process's graph pool (``capture_graph``) and
+        replayed, events 2..E-1 replays (a failed capture raises; nothing
+        falls back to the per-keyframe loop); on the CPU, or with E <= 2,
+        every event eagerly. The graph is created, replayed and dropped
+        inside this call, so no two programs' graphs of a process replay
+        at once, which is what lets them share the pool. A compaction pass is
         launched between events with no read (``compact_in_place``), over
         the bucket that holds a host bound on the count. ``map_state`` is
         updated in place (its count becomes a device tensor).
@@ -1092,17 +1098,21 @@ class RefinementEngine:
         step (``event_rows``), estimated poses ``[E, 4, 4]``, info:
         ``graphs`` captured,
         ``capture_s``, ``compactions`` ``[{"keyframe", "counts"}]``, each
-        pass's counts before and after as int64 ``[2]``), all on the device
-        but the info's numbers."""
+        pass's counts before and after as int64 ``[2]``, and ``counts``
+        (``program_counts``: the caching allocator's device allocations and
+        frees during the call and its eager events, also the traced run's
+        ``counts``)), all on the device but the info's numbers."""
         E = len(prev_idx)
         dev = self.device
         cuda = dev.type == "cuda"
+        calls = allocator_calls(dev)
         # A device count gives no host bound but the capacity.
         start = map_state.count if isinstance(map_state.count, int) else map_state.data.shape[0]
         ms = on_device(map_state)
         out: Dict[str, Tensor] = {}
         est = torch.zeros(E, 4, 4, dtype=poses.dtype, device=dev)
-        info = {"graphs": 0, "capture_s": 0.0, "compactions": []}
+        info = {"graphs": 0, "capture_s": 0.0, "compactions": [],
+                "counts": program_counts(dev, calls, 0)}
         if E == 0:
             return ms, out, est, info
         pairs = torch.tensor([[int(p), int(c)] for p, c in zip(prev_idx, cur_idx)],
@@ -1118,19 +1128,20 @@ class RefinementEngine:
         period = int(self.config.MODEL.get("compact_period", 0) or 0)
         if cuda:
             self._schedule = DeviceSchedule(self.config, self.optimizer, self.scheduler, dev)
-        side = torch.cuda.Stream(device=dev) if cuda else None
+        kinds = event_schedule(E, cuda)
+        side = program_streams(dev)[0] if cuda else None
         if cuda:
             side.wait_stream(torch.cuda.current_stream(dev))
         tracing.begin_events(E, tracing.phase_names(self.refinement_steps,
                                                      tracing.NETWORK_STEP_PHASES), dev,
-                             replayed=[cuda and e >= 2 for e in range(E)])
+                             replayed=[k != "eager" for k in kinds])
         graph = None
         try:
             for e in range(E):
-                warm = cuda and e >= 2
+                warm = kinds[e] != "eager"
                 ctx = torch.cuda.stream(side) if cuda and not warm else contextlib.nullcontext()
                 with ctx:
-                    if warm and graph is None:
+                    if kinds[e] == "capture":
                         torch.cuda.current_stream(dev).wait_stream(side)
                         with tracing.span("program.capture"):
                             graph = self._capture_event(seq, K, pair_i, ev_i, ms, carry, out,
@@ -1159,18 +1170,21 @@ class RefinementEngine:
             if self._schedule is not None:
                 self._schedule.exit()
                 self._schedule = None
+        info["counts"] = program_counts(dev, calls, kinds.count("eager"))
+        tracing.count(info["counts"])
         return ms, out, est, info
 
     def _capture_event(self, seq, K, pair_i, ev_i, ms, carry, out, est, info):
         """Capture one warm event (no fusion of the previous frame) as a CUDA
-        graph; its random draws, if any, from the engine's generator."""
+        graph (``capture_graph``); its random draws, if any, from the
+        engine's generator."""
         L = self.config.LOSS
         graph = torch.cuda.CUDAGraph()
         if L.get("supervise_depth") or (L.get("auto_masking") and L.get("min_reprojection")):
             graph.register_generator_state(self.generator)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            self._sequence_event(seq, K, pair_i, ev_i, ms, carry, out, est, fuse_prev=False)
+        capture_graph(graph, self.device, lambda: self._sequence_event(
+            seq, K, pair_i, ev_i, ms, carry, out, est, fuse_prev=False))
         info["capture_s"] += time.perf_counter() - t0
         info["graphs"] += 1
         return graph
@@ -1222,6 +1236,102 @@ def host_metrics(metrics: Dict) -> Dict:
         else:
             out[k] = float(v)
     return out
+
+
+def event_schedule(n_events: int, cuda: bool) -> List[str]:
+    """How a program runs each of its ``n_events`` keyframe events:
+    ``"eager"``, ``"capture"`` (captured as the program's CUDA graph, then
+    replayed) or ``"replay"``. On a card with at least three events, event
+    0 runs eagerly (it sets up cuDNN, autograd and the optimizer's state,
+    and the KNN cache the later events are seeded from) and event 1 is
+    captured; with fewer, a capture would pay for at most one replay, so
+    every event runs eagerly, as on the CPU."""
+    if cuda and n_events >= 3:
+        return ["eager", "capture"] + ["replay"] * (n_events - 2)
+    return ["eager"] * n_events
+
+
+# The process's graph pool and program streams, one of each per card. A
+# program creates, replays and drops its graph inside one call, and one
+# program runs at a time in a process (the caching allocator and the card
+# belong to the process too), so no two graphs that share the pool ever
+# replay at once.
+_GRAPH_POOLS: Dict[int, Tuple[Tuple[int, int], "torch.cuda.CUDAGraph"]] = {}
+_PROGRAM_STREAMS: Dict[int, Tuple["torch.cuda.Stream", "torch.cuda.Stream"]] = {}
+
+
+def _card_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def program_streams(device: torch.device) -> Tuple["torch.cuda.Stream", "torch.cuda.Stream"]:
+    """The process's (side, capture) streams on ``device``: the programs'
+    eager events run on the first, their captures on the second. Kept for
+    the process, since the caching allocator caches a block for the
+    stream it was allocated on: fresh streams for every run would leave
+    each run's blocks unusable by the next."""
+    index = _card_index(device)
+    streams = _PROGRAM_STREAMS.get(index)
+    if streams is None:
+        streams = _PROGRAM_STREAMS[index] = (torch.cuda.Stream(device=index),
+                                             torch.cuda.Stream(device=index))
+    return streams
+
+
+def graph_pool(device: torch.device) -> Tuple[int, int]:
+    """The handle of the process's CUDA graph pool on ``device``. One graph
+    of a single fill is captured into it and kept with it: while a graph
+    of the pool lives, the device's caching allocator keeps the pool's
+    blocks for its next capture and the pinned host allocator keeps the
+    pool's entry (a ``torch.cuda.MemPool`` holds only the device's side,
+    and a capture into a pool whose host entry no graph holds fails), so
+    the blocks a dropped program graph leaves are the next capture's."""
+    index = _card_index(device)
+    entry = _GRAPH_POOLS.get(index)
+    if entry is None:
+        pool, anchor = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
+        capture_graph(anchor, device, lambda: torch.zeros(1, device=device), pool)
+        entry = _GRAPH_POOLS[index] = (pool, anchor)
+    return entry[0]
+
+
+def capture_graph(graph: "torch.cuda.CUDAGraph", device: torch.device, body,
+                  pool=None) -> None:
+    """Capture ``body()`` into ``graph`` on the process's capture stream,
+    into ``pool`` (the process's graph pool by default: ``program_streams``,
+    ``graph_pool``), the capture stream behind the current one. Unlike
+    ``torch.cuda.graph`` it neither synchronises nor empties the device's or
+    the pinned host allocator's caches: those carry over from one program
+    to the next."""
+    pool = graph_pool(device) if pool is None else pool
+    stream = program_streams(device)[1]
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool)
+        try:
+            body()
+        finally:
+            graph.capture_end()
+
+
+def allocator_calls(device: torch.device) -> Tuple[int, int]:
+    """The caching allocator's device allocations and frees (its
+    ``cudaMalloc`` and ``cudaFree`` calls) on ``device`` so far; (0, 0)
+    off a card."""
+    if device.type != "cuda":
+        return 0, 0
+    stats = torch.cuda.memory_stats(device)
+    return int(stats.get("num_device_alloc", 0)), int(stats.get("num_device_free", 0))
+
+
+def program_counts(device: torch.device, before: Tuple[int, int],
+                   eager_events: int) -> Dict[str, int]:
+    """A program call's ``counts``: the caching allocator's device
+    allocations and frees since ``before`` (``allocator_calls``) and the
+    call's ``eager_events``."""
+    allocs, frees = allocator_calls(device)
+    return {"device_allocs": allocs - before[0], "device_frees": frees - before[1],
+            "eager_events": eager_events}
 
 
 @contextlib.contextmanager

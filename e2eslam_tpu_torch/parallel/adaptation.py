@@ -41,11 +41,13 @@ Two dispatches, as the JAX runner's (``adaptation.py:326-370``):
     pinned memory into fixed device tensors, and it writes each event's
     last-step metrics into ``[n, E, ...]`` buffers (the gradient norms and
     debug images too) and the estimated poses into ``[n, E, 4, 4]``, read
-    once after the last event. On a CUDA card events
-    0 and 1 run eagerly on a side stream, one warm event is captured as a
-    CUDA graph and events 2..E-1 replay it (as
-    ``RefinementEngine.process_sequence`` does for one sequence); on the
-    CPU every event runs eagerly, the same code. Compaction passes are
+    once after the last event. Its events follow
+    ``engine/refine.py::event_schedule``, as
+    ``RefinementEngine.process_sequence`` does for one sequence: on a CUDA
+    card with E >= 3 event 0 runs eagerly on the process's side stream,
+    event 1 is captured as a CUDA graph into the process's graph pool
+    (``capture_graph``) and events 1..E-1 replay it; on the CPU, or with
+    E <= 2, every event runs eagerly, the same code. Compaction passes are
     launched between events with no read, each over the bucket of rows
     that holds a host bound on its map's count. A ``data`` axis of D > 1
     ranks captures one graph per rank; no collective runs inside it.
@@ -80,9 +82,14 @@ from e2eslam_tpu_torch.engine.optim import DeviceSchedule
 from e2eslam_tpu_torch.engine.refine import (
     PairBatch,
     _sync_debug,
+    allocator_calls,
+    capture_graph,
     event_rows,
+    event_schedule,
     host_metrics,
     metrics_from_rows,
+    program_counts,
+    program_streams,
     store_map,
 )
 from e2eslam_tpu_torch.losses.trajectory import absolute_trajectory_error, relative_pose_error
@@ -162,10 +169,12 @@ class ParallelAdaptation:
 
         Returns ``{"state", "maps" (this rank's), "per_sequence" (all N, in
         order), "num_events", "refine_steps", "elapsed_s",
-        "steps_per_sec", "dispatch", "graphs", "capture_s", "trace"}``;
-        ``steps_per_sec`` counts every sequence's steps over this rank's
-        synchronised clock, ``graphs`` and ``capture_s`` the program's CUDA
-        graphs and their capture time (inside ``elapsed_s``), ``trace``
+        "steps_per_sec", "dispatch", "graphs", "capture_s", "counts",
+        "trace"}``; ``steps_per_sec`` counts every sequence's steps over this
+        rank's synchronised clock, ``graphs`` and ``capture_s`` the program's
+        CUDA graphs and their capture time (inside ``elapsed_s``), ``counts``
+        the program's (``engine/refine.py::program_counts``; None for the
+        per-event loop), ``trace``
         this rank's spans and phase timestamps when a profiler recorded as
         the run started (``utils/tracing.py``; else None).
         """
@@ -204,7 +213,7 @@ class ParallelAdaptation:
         else:
             maps, keyframes, metrics, est, compactions = self._run_loop(
                 state, data, [schedules[g] for g in own], E)
-            info = {"graphs": 0, "capture_s": 0.0}
+            info = {"graphs": 0, "capture_s": 0.0, "counts": None}
         self._sync()
         elapsed = time.perf_counter() - t_start
         with tracing.span("unit.summary"):
@@ -243,6 +252,7 @@ class ParallelAdaptation:
                 "dispatch": mode,
                 "graphs": info["graphs"],
                 "capture_s": info["capture_s"],
+                "counts": info["counts"],
             }
 
     def _run_loop(self, state, data, schedules, E):
@@ -310,10 +320,13 @@ class ParallelAdaptation:
     def _run_program(self, state, data, schedules, E):
         """The program over the local sequences' ``schedules`` (the JAX
         ``whole_run``). Returns (maps, keyframes, metrics, estimated poses,
-        compactions, info ``{"graphs", "capture_s"}``), as ``_run_loop``."""
+        compactions, info ``{"graphs", "capture_s", "counts"}``), as
+        ``_run_loop``. Its graph is created, replayed and dropped inside this
+        call (the process's graph pool, ``engine/refine.py::graph_pool``)."""
         cfg, par = self.config, self.par
         dev, n = par.device, par.n_local
         cuda = dev.type == "cuda"
+        calls = allocator_calls(dev)
         colors, gt_depths, K, poses = data
         counts = [len(s) for s in schedules]
         maps = [on_device(m) for m in self.init_maps()]
@@ -338,19 +351,20 @@ class ParallelAdaptation:
         seq = (colors, gt_depths, K, poses)
         if cuda:
             par._schedule = DeviceSchedule(cfg, state.optimizer, state.scheduler, dev)
-        side = torch.cuda.Stream(device=dev) if cuda else None
+        kinds = event_schedule(E, cuda)
+        side = program_streams(dev)[0] if cuda else None
         if cuda:
             side.wait_stream(torch.cuda.current_stream(dev))
         sync_mode = par.engines[0].replay_sync_mode
         tracing.begin_events(E, tracing.phase_names(self.R), dev,
-                             replayed=[cuda and e >= 2 for e in range(E)])
+                             replayed=[k != "eager" for k in kinds])
         graph = None
         try:
             for e in range(E):
-                warm = cuda and e >= 2
+                warm = kinds[e] != "eager"
                 ctx = torch.cuda.stream(side) if cuda and not warm else contextlib.nullcontext()
                 with ctx:
-                    if warm and graph is None:
+                    if kinds[e] == "capture":
                         torch.cuda.current_stream(dev).wait_stream(side)
                         with tracing.span("program.capture"):
                             graph = self._capture_event(state, seq, ins, maps, carry, out, est,
@@ -403,6 +417,8 @@ class ParallelAdaptation:
             maps = [dataclasses.replace(m, count=int(m.count),
                                         kf_counter=None if m.kf_counter is None
                                         else int(m.kf_counter)) for m in maps]
+        info["counts"] = program_counts(dev, calls, kinds.count("eager"))
+        tracing.count(info["counts"])
         return (maps, keyframes, metrics, [est_np[j, :counts[j]] for j in range(n)],
                 compactions, info)
 
@@ -462,16 +478,16 @@ class ParallelAdaptation:
 
     def _capture_event(self, state, seq, ins, maps, carry, out, est, info):
         """Capture one warm event (no fusion of the previous frame) as a CUDA
-        graph; each sequence's random draws, if any, from its engine's
-        generator."""
+        graph (``engine/refine.py::capture_graph``); each sequence's random
+        draws, if any, from its engine's generator."""
         L = self.config.LOSS
         graph = torch.cuda.CUDAGraph()
         if L.get("supervise_depth") or (L.get("auto_masking") and L.get("min_reprojection")):
             for engine in self.par.engines:
                 graph.register_generator_state(engine.generator)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            self._event(state, seq, ins, maps, carry, out, est, fuse_prev=False)
+        capture_graph(graph, self.par.device, lambda: self._event(
+            state, seq, ins, maps, carry, out, est, fuse_prev=False))
         info["capture_s"] += time.perf_counter() - t0
         info["graphs"] += 1
         return graph

@@ -34,11 +34,14 @@ On:
     ``%globaltimer`` and the event index from the device, launched on the
     current stream: captured into the program's graph, every replay writes
     its own row, and nothing is read to the host. On the CPU a mark is ``time.perf_counter_ns()``.
+  * A program hands its call's counts to ``count`` (the caching
+    allocator's device allocations and frees, its eager events:
+    ``engine/refine.py::program_counts``).
   * The marks, relative to the run's first, ride in the program's final
     read of its metrics table (``read``); ``Session.finish`` makes them the
     run result's ``trace``: ``{"phases": [P names], "event_phase_ms":
     [E][P], "replayed": [E] (events that were graph replays), "span_s":
-    {span name: host seconds}}``.
+    {span name: host seconds}, "counts": {name: count}}``.
 
 ``TRACES`` keeps the newest traced runs' ``trace``, for a profiler's owner
 that does not hold the runs' results. The tracing state belongs to the
@@ -87,6 +90,7 @@ class Session:
 
     def __init__(self):
         self.span_s: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
         self.phases: List[str] = []
         self.replayed: List[bool] = []
         self.stamps: Optional[torch.Tensor] = None
@@ -166,7 +170,8 @@ class Session:
                  "event_phase_ms": ([] if self.marks is None
                                     else (np.diff(self.marks, axis=1) / 1e6).tolist()),
                  "replayed": list(self.replayed),
-                 "span_s": dict(self.span_s)}
+                 "span_s": dict(self.span_s),
+                 "counts": dict(self.counts)}
         TRACES.append(trace)
         return trace
 
@@ -222,6 +227,14 @@ def begin_events(n_events: int, phases: Sequence[str], device: torch.device,
     s = _CURRENT
     if s is not None:
         s.begin_events(n_events, phases, device, replayed)
+
+
+def count(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the current session's (nothing off)."""
+    s = _CURRENT
+    if s is not None:
+        for name, n in counts.items():
+            s.counts[name] = s.counts.get(name, 0) + int(n)
 
 
 def read(table: torch.Tensor) -> np.ndarray:
